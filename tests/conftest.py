@@ -9,3 +9,5 @@ sys.path.insert(0, os.path.join(os.path.dirname(__file__), "..", "src"))
 def pytest_configure(config):
     config.addinivalue_line(
         "markers", "slow: long-running tests (subprocess / multi-device)")
+    config.addinivalue_line(
+        "markers", "gpu: needs a CUDA device; skips where none is visible")
