@@ -8,19 +8,22 @@ Phases, in order; any failure exits non-zero and prints no result:
   1. resolve the card and print its name and power limit (nvidia-smi);
   2. build the CUDA kernels from ``src/repro_torch/kernels/csrc``;
   3. check each kernel against its plain version on the card, at the main
-     path's shapes (paper CNN: N = 62,006 padded, M or K = 2) and at a large
-     shape (N = 2^28; M = 4 for f32, 8 for int8, so M*N >= 2^31), and time
-     both (CUDA events, warm, averaged) beside the memory bound;
-  4. run a 2-round Sync UnifyFL experiment of the paper CNN with int8
-     compression on the card (the main path), then a 1-round uncompressed
-     one, each with the launch counts set to 0 just before it; check the
-     ledger, that every param lives on the card, that every kernel of the
-     path launched, and that the int8 run agrees with the same run on the
-     CPU (the plain versions); then profile one more round (device busy
-     share, top kernels by device time);
+     path's shapes (paper CNN: N = 62,006 padded, M or K = 2, M = 3 for the
+     MultiKRUM Gram) and at a large shape (N = 2^28; M = 4 for f32 sums,
+     8 for int8 and the Gram, so M*N >= 2^31), and time both (CUDA events,
+     warm, averaged) beside the least time the card could take;
+  4. run the main paths on the card, each with the launch counts set to 0
+     just before it: a 2-round Sync UnifyFL experiment of the paper CNN
+     with int8 compression and accuracy scoring, a 1-round uncompressed
+     one, and a 3-round one with int8-delta compression and MultiKRUM
+     scoring; check the ledger, that every param lives on the card, that
+     every kernel of each path launched, and that the int8 and the
+     int8-delta runs agree with the same runs on the CPU (the plain
+     versions); then profile one more int8 round and two more int8-delta
+     MultiKRUM rounds (device busy share, top kernels by device time);
   5. print the ``kernels`` JSON line, then the result line.
 
-The card's peak memory rate is the published H100 SXM figure; a card capped
+The card's peak rates are the published H100 SXM figures; a card capped
 below 700 W runs slower, which is why its power limit is printed beside the
 numbers.
 """
@@ -36,6 +39,8 @@ import torch
 
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM, NVIDIA data sheet
 F32_FLOPS = 67e12              # H100 SXM float32 outside the tensor cores
+INT8_OPS = 1979e12             # H100 SXM int8 tensor-core rate, dense
+GRAM_ULPS = 1.0                # Gram tolerance, sqrt(N) ulps (check_gram)
 MAIN_N = 62_006                # paper-cnn params (configs/paper_cnn.py)
 LARGE_N = 1 << 28
 ACC_TOL = 0.05                 # global accuracy, card vs CPU (see phase 4)
@@ -81,14 +86,13 @@ def quant_input(n: int, gen) -> torch.Tensor:
 
 
 def check_kernels(shape: str, gen, iters: int):
-    from repro_torch.kernels import q8agg, quant, ref, wsum
-    from repro_torch.kernels import ops
+    from repro_torch.kernels import multikrum, ops, q8agg, quant, ref, wsum
     large = shape == "large"
     rows = []
 
     def row(name, max_err, ms, plain_ms, nbytes, flops=0.0, library_ms=None,
-            check="bit-exact", **dims):
-        b_ms, b_by = bound(nbytes, flops)
+            check="bit-exact", peak_flops=F32_FLOPS, **dims):
+        b_ms, b_by = bound(nbytes, flops, peak_flops)
         rows.append({"name": name, "shape": shape, **dims,
                      "max_abs_err": max_err, "check": check, "kernel_ms": ms,
                      "plain_ms": plain_ms, "library_ms": library_ms,
@@ -169,19 +173,109 @@ def check_kernels(shape: str, gen, iters: int):
         M=M, N=N)
     del qk, sk
     torch.cuda.empty_cache()
+
+    # add_q8_delta: the int8-delta rebuild, N padded to 131072; bit-exact
+    N = LARGE_N if large else MAIN_N + (-MAIN_N) % ops.QUANT_BLOCK
+    base = torch.randn((N,), generator=gen, device="cuda") * 0.05
+    qd = torch.randint(-127, 128, (N,), generator=gen, device="cuda",
+                       dtype=torch.int8)
+    sd = torch.rand((N // 1024,), generator=gen, device="cuda") * 1e-3 + 1e-5
+    got, want = q8agg.add_q8_delta(base, qd, sd), ref.add_q8_delta(base, qd, sd)
+    torch.cuda.synchronize()
+    if not torch.equal(got, want):
+        fail(f"add_q8_delta {shape}: {int((got != want).sum())} elements "
+             "differ from the plain version")
+    del got, want
+    row("add_q8_delta", 0.0,
+        cuda_ms(lambda: q8agg.add_q8_delta(base, qd, sd), iters),
+        cuda_ms(lambda: ref.add_q8_delta(base, qd, sd), iters),
+        9 * N + N // 1024 * 4, 2.0 * N, N=N)
+    del base, qd, sd
+    torch.cuda.empty_cache()
+
+    # gram_q8: MultiKRUM off M int8 payloads (a round's whole-int8 models)
+    M = 8 if large else 3
+    qg = torch.randint(-127, 128, (M, N), generator=gen, device="cuda",
+                       dtype=torch.int8)
+    sg = torch.rand((M, N // 1024), generator=gen, device="cuda") * 1e-3 + 1e-4
+    # float64 scales: the dequantized models exactly, as the kernel's int8
+    # products and scale products stand for them
+    err = check_gram("gram_q8", shape, q8agg.gram_q8(qg, sg),
+                     ref.gram_q8(qg, sg), ref.dequantize_rows(qg, sg.double()))
+    row("gram_q8", err, cuda_ms(lambda: q8agg.gram_q8(qg, sg), iters),
+        cuda_ms(lambda: ref.gram_q8(qg, sg), iters),
+        M * N + M * N // 1024 * 4, 2.0 * M * M * N, peak_flops=INT8_OPS,
+        check="|G - G_plain| <= sqrt(N) 2^-24 |x_i| |x_j|, sq likewise; "
+        "a quarter of that from float64",
+        M=M, N=N)
+    del qg, sg
+    torch.cuda.empty_cache()
+
+    # gram_and_norms: MultiKRUM off M f32 models, N padded to 2048
+    N = LARGE_N if large else MAIN_N + (-MAIN_N) % multikrum.TILE_N
+    xg = torch.randn((M, N), generator=gen, device="cuda")
+    err = check_gram("gram_and_norms", shape, multikrum.gram_and_norms(xg),
+                     ref.gram_and_norms(xg), xg)
+    row("gram_and_norms", err,
+        cuda_ms(lambda: multikrum.gram_and_norms(xg), iters),
+        cuda_ms(lambda: ref.gram_and_norms(xg), iters),
+        4 * M * N, 2.0 * M * M * N,
+        library_ms=cuda_ms(lambda: torch.matmul(xg, xg.T), iters),
+        check="|G - G_plain| <= sqrt(N) 2^-24 |x_i| |x_j|, sq likewise; "
+        "a quarter of that from float64",
+        M=M, N=N)
+    del xg
+    torch.cuda.empty_cache()
     return rows
+
+
+def check_gram(name: str, shape: str, got, want, x) -> float:
+    """G and sq against the plain version and against the same sums in
+    float64, within GRAM_ULPS * sqrt(N) float32 ulps of |x_i| * |x_j|: a
+    float32 sum of N terms taken in another order moves by about sqrt(N)
+    roundings (the plain version's cuBLAS product sums long runs of N in
+    one order). The kernel must sit 4x closer than that to float64. G must
+    be exactly symmetric and sq exactly its diagonal (the kernel's
+    fixed-order reduction). Returns the largest error against the plain
+    version."""
+    torch.cuda.synchronize()
+    x64 = x.double()
+    g64 = x64 @ x64.T
+    del x64
+    norms = g64.diagonal().sqrt()
+    tol = GRAM_ULPS * x.shape[1] ** 0.5 * 2.0 ** -24
+    bound = tol * norms[:, None] * norms[None, :]
+
+    def err(a, b):
+        return ((a[0].double() - b[0]).abs() / bound).max().item(), \
+            ((a[1][:, 0].double() - b[1]).abs() / bound.diagonal()).max().item()
+
+    vs_plain = err(got, (want[0].double(), want[1][:, 0].double()))
+    vs_f64 = err(got, (g64, g64.diagonal()))
+    print(json.dumps({"check": name, "shape": shape, "tol": tol,
+                      "err_vs_plain_of_bound": vs_plain,
+                      "err_vs_f64_of_bound": vs_f64}), flush=True)
+    if max(vs_plain) > 1.0 or max(vs_f64) > 0.25:
+        fail(f"{name} {shape}: G, sq off by {vs_plain} of the bound against "
+             f"the plain version, {vs_f64} against float64")
+    if not (torch.equal(got[0], got[0].T)
+            and torch.equal(got[1][:, 0], got[0].diagonal())):
+        fail(f"{name} {shape}: G not symmetric or sq not its diagonal")
+    return max(float((got[0] - want[0]).abs().max()),
+               float((got[1] - want[1]).abs().max()))
 
 
 # --------------------------------------------------------------------------- #
 # Phase 4: the main path
 # --------------------------------------------------------------------------- #
 
-def run_experiment(compression: str, rounds: int, device: str):
+def run_experiment(compression: str, rounds: int, device: str,
+                   scorer: str = "accuracy"):
     from repro_torch.config import FedConfig
     from repro_torch.configs import get_config
     from repro_torch.core.builder import build_image_experiment, global_eval
     fed = FedConfig(n_silos=3, clients_per_silo=2, rounds=rounds, mode="sync",
-                    scorer="accuracy", agg_policy="top_k", policy_k=2,
+                    scorer=scorer, agg_policy="top_k", policy_k=2,
                     compression=compression)
     orch = build_image_experiment(get_config("paper-cnn"), fed,
                                   partition="niid", alpha=0.2, n_train=1500,
@@ -194,17 +288,17 @@ def run_experiment(compression: str, rounds: int, device: str):
     return orch, global_eval(orch), wall
 
 
-def profile_round() -> dict:
-    """One int8 Sync round on the card under ``torch.profiler``: the
-    device's busy share of the round's wall time and the kernels that fill
-    it. Its launches are not counted toward the main path."""
+def profile_rounds(compression: str, scorer: str, rounds: int) -> dict:
+    """Sync rounds on the card under ``torch.profiler``: the device's busy
+    share of the rounds' wall time and the kernels that fill it. Its
+    launches are not counted toward the main path."""
     from torch.profiler import ProfilerActivity, profile
     from repro_torch.config import FedConfig
     from repro_torch.configs import get_config
     from repro_torch.core.builder import build_image_experiment
-    fed = FedConfig(n_silos=3, clients_per_silo=2, rounds=1, mode="sync",
-                    scorer="accuracy", agg_policy="top_k", policy_k=2,
-                    compression="int8")
+    fed = FedConfig(n_silos=3, clients_per_silo=2, rounds=rounds, mode="sync",
+                    scorer=scorer, agg_policy="top_k", policy_k=2,
+                    compression=compression)
     orch = build_image_experiment(get_config("paper-cnn"), fed,
                                   partition="niid", alpha=0.2, n_train=1500,
                                   n_test=450, seed=0, device="cuda")
@@ -212,7 +306,7 @@ def profile_round() -> dict:
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        orch.run(1)
+        orch.run(rounds)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     kern = [e for e in prof.key_averages()
@@ -222,12 +316,14 @@ def profile_round() -> dict:
     # device time of the ported kernels alone (their launch gaps excluded)
     ported = {}
     for name in ("weighted_sum_kernel", "quantize_kernel",
-                 "dequantize_kernel", "wsum_q8_kernel"):
+                 "dequantize_kernel", "wsum_q8_kernel", "add_q8_delta_kernel",
+                 "gram_q8_kernel", "gram_f32_kernel", "reduce_partials"):
         hits = [e for e in kern if f"::{name}" in e.key]  # not de-quantize
         ported[name] = {"count": sum(e.count for e in hits),
                         "ms": sum(e.self_device_time_total for e in hits)
                         / 1e3}
-    return {"phase": "profile-int8-round", "wall_s": wall,
+    return {"phase": f"profile-{compression}-{scorer}", "rounds": rounds,
+            "wall_s": wall,
             "device_busy_s": busy_us / 1e6,
             "device_idle_share": 1.0 - busy_us / 1e6 / wall,
             "device_kernels": len(kern),
@@ -235,6 +331,24 @@ def profile_round() -> dict:
             "top_kernels": [{"name": e.key[:80], "count": e.count,
                              "ms": e.self_device_time_total / 1e3}
                             for e in top]}
+
+
+def check_against_cpu(name: str, orch, ge, cpu_run) -> None:
+    """The same run on the CPU (the init is drawn on the CPU either way)
+    through the plain versions: same picks and ledger, and global accuracy
+    within ACC_TOL (450 test images; float32 sums in another order and
+    cuDNN's convolution algorithms move a few predictions, not the
+    outcome)."""
+    ref_orch, ref_ge, _ = cpu_run
+    if [s.pick_log for s in orch.silos] != [s.pick_log for s in ref_orch.silos]:
+        fail(f"{name} run: picks differ from the CPU run")
+    if orch.ledger.height != ref_orch.ledger.height:
+        fail(f"{name} run: ledger height differs from the CPU run")
+    for sid, v in ge.items():
+        a, b = v["accuracy"], ref_ge[sid]["accuracy"]
+        if not (0.0 <= a <= 1.0) or abs(a - b) > ACC_TOL:
+            fail(f"{name} run, {sid}: global accuracy {a} on the card vs {b} "
+                 "on the CPU")
 
 
 def main() -> int:
@@ -282,22 +396,11 @@ def main() -> int:
     for s in orch.silos:
         if any(t.device.type != "cuda" for t in tree.leaves(s.cluster.params)):
             fail(f"{s.silo_id}: params left the card")
-    missing = [k for k, n in launches.items() if n == 0]
+    missing = [k for k in ("weighted_sum", "quantize", "dequantize", "wsum_q8")
+               if launches[k] == 0]
     if missing:
         fail(f"kernels never launched on the main path: {missing}")
-    # the same run on the CPU (the init is drawn on the CPU either way)
-    # through the plain versions: same picks and ledger, and global accuracy
-    # within ACC_TOL (450 test images; float32 sums in another order and
-    # cuDNN's convolution algorithms move a few predictions, not the outcome)
-    ref_orch, ref_ge, _ = run_experiment("int8", 2, "cpu")
-    if [s.pick_log for s in orch.silos] != [s.pick_log for s in ref_orch.silos]:
-        fail("int8 run: picks differ from the CPU run")
-    if orch.ledger.height != ref_orch.ledger.height:
-        fail("int8 run: ledger height differs from the CPU run")
-    for sid, v in ge.items():
-        a, b = v["accuracy"], ref_ge[sid]["accuracy"]
-        if not (0.0 <= a <= 1.0) or abs(a - b) > ACC_TOL:
-            fail(f"{sid}: global accuracy {a} on the card vs {b} on the CPU")
+    check_against_cpu("int8", orch, ge, run_experiment("int8", 2, "cpu"))
 
     _build.reset_launches()
     orch_n, ge_n, wall_n = run_experiment("none", 1, "cuda")
@@ -311,7 +414,28 @@ def main() -> int:
     if not orch_n.ledger.verify() or launches_n["weighted_sum"] == 0:
         fail("uncompressed run: ledger or FedAvg kernel")
 
-    print(json.dumps(profile_round()), flush=True)
+    # int8-delta with MultiKRUM: round 1 ships whole int8 (gram_q8), later
+    # rounds int8 deltas (add_q8_delta rebuilds them, gram_and_norms scores)
+    _build.reset_launches()
+    orch_d, ge_d, wall_d = run_experiment("int8-delta", 3, "cuda", "multikrum")
+    launches_d = _build.launch_counts()
+    print(json.dumps({"phase": "sync-int8-delta-multikrum", "rounds": 3,
+                      "wall_s": wall_d, "ledger_height": orch_d.ledger.height,
+                      "launches": launches_d,
+                      "global_accuracy": {k: v["accuracy"]
+                                          for k, v in ge_d.items()}}),
+          flush=True)
+    if not orch_d.ledger.verify():
+        fail("int8-delta multikrum run: ledger does not verify")
+    missing = [k for k in ("add_q8_delta", "gram_q8", "gram_and_norms")
+               if launches_d[k] == 0]
+    if missing:
+        fail(f"int8-delta multikrum run never launched {missing}")
+    check_against_cpu("int8-delta multikrum", orch_d, ge_d,
+                      run_experiment("int8-delta", 3, "cpu", "multikrum"))
+
+    print(json.dumps(profile_rounds("int8", "accuracy", 1)), flush=True)
+    print(json.dumps(profile_rounds("int8-delta", "multikrum", 2)), flush=True)
 
     # phase 5: the kernels line and the result line
     meta = {
@@ -323,7 +447,18 @@ def main() -> int:
                        "src/repro/kernels/quant.py:55"),
         "wsum_q8": ("src/repro_torch/kernels/csrc/q8agg.cu",
                     "src/repro/kernels/q8agg.py:51"),
+        "add_q8_delta": ("src/repro_torch/kernels/csrc/q8agg.cu",
+                         "src/repro/kernels/q8agg.py:77"),
+        "gram_q8": ("src/repro_torch/kernels/csrc/q8agg.cu",
+                    "src/repro/kernels/q8agg.py:122"),
+        "gram_and_norms": ("src/repro_torch/kernels/csrc/multikrum.cu",
+                           "src/repro/kernels/multikrum.py:40"),
     }
+    # each kernel's launches on the main path that runs it
+    path_launches = {k: launches[k] for k in
+                     ("weighted_sum", "quantize", "dequantize", "wsum_q8")}
+    path_launches.update({k: launches_d[k] for k in
+                          ("add_q8_delta", "gram_q8", "gram_and_norms")})
     kernels = []
     for r in main_rows:
         if r["name"] not in meta:      # dequantize_k1: same kernel, K = 1
@@ -331,7 +466,7 @@ def main() -> int:
         src, replaces = meta[r["name"]]
         kernels.append({"name": r["name"], "route": "cuda", "source": src,
                         "replaces": replaces,
-                        "launches": launches[r["name"]],
+                        "launches": path_launches[r["name"]],
                         "max_abs_err": r["max_abs_err"], "ms": r["kernel_ms"],
                         "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
                         "bound_by": r["bound_by"],

@@ -23,7 +23,7 @@ def main():
     ap.add_argument("--device", default=None,
                     help="torch device (default: cuda; raises without one)")
     ap.add_argument("--compression", default="none",
-                    choices=["none", "int8", "topk-delta"])
+                    choices=["none", "int8", "int8-delta", "topk-delta"])
     args = ap.parse_args()
     fed = FedConfig(n_silos=3, clients_per_silo=2, rounds=4, local_epochs=1,
                     mode="sync", scorer="accuracy", agg_policy="top_k",

@@ -4,13 +4,15 @@ Twin of ``repro.core.orchestrator``. ``SiloRuntime`` wires one FL cluster to
 the ledger/contract and its store node. ``SyncOrchestrator`` runs the
 phase-locked cycle (training window -> scoring window -> finalize);
 stragglers that miss the submission window are deferred to the next round
-and late scores are disregarded, exactly per §3.2. Fault tolerance: scorer
-reassignment on deadline, CAS-backed checkpoint/restart.
+and late scores are disregarded, exactly per §3.2. Scoring is per model
+(accuracy or loss, batched per scorer) or MultiKRUM over the whole round.
+Fault tolerance: scorer reassignment on deadline, CAS-backed
+checkpoint/restart.
 
 Orchestration state lives in the single-replica ``Ledger``. Not ported yet
 (ROADMAP.md, queue 1): the replicated chain over a WAN fabric
-(``FedConfig.net``), MultiKRUM scoring, edge fleets and the Async engine —
-each raises ``NotImplementedError``.
+(``FedConfig.net``), edge fleets and the Async engine — each raises
+``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -29,6 +31,7 @@ from repro_torch.core import wire
 from repro_torch.core.contract import UnifyFLContract
 from repro_torch.core.ledger import Ledger
 from repro_torch.core.policies import select_models
+from repro_torch.core.scoring import multikrum_scores_for_decoded
 from repro_torch.core.simenv import SimEnv
 from repro_torch.core.store import StoreNetwork, StoreNode
 from repro_torch.fed import scorebatch
@@ -59,8 +62,6 @@ def check_ported(fed: FedConfig) -> None:
     if fed.net is not None:
         raise _not_ported("FedConfig.net (replicated chain over the WAN "
                           "fabric)", "item 7, the net fabric path")
-    if fed.scorer == "multikrum":
-        raise _not_ported("scorer='multikrum'", "item 6, core/scoring.py")
     if fed.edge_per_silo > 0 or fed.edge_light_clients:
         raise _not_ported("the edge tier (edge_per_silo)", "item 7, "
                           "edge/fleet.py")
@@ -106,6 +107,7 @@ class SiloRuntime:
             else "accuracy"
         self._rng = random.Random(cluster.silo_id)
         self._flat_spec = None  # cached flatten spec of this config's params
+        self._announces = 0     # envelopes announced (keyframe cadence)
 
     # ------------------------------------------------------------------ #
     @property
@@ -202,9 +204,16 @@ class SiloRuntime:
 
     def _delta_base(self):
         """(base_cid, base_vec) for delta coding: the silo's last announced
-        model as receivers decode it."""
+        model as receivers decode it.
+
+        Every ``fed.keyframe_every``-th announced envelope ships whole (no
+        base), so a late joiner never walks more than ``keyframe_every - 1``
+        delta links."""
         if self.last_global_cid is None or \
                 not wire.resolve_method(self.fed.compression).endswith("-delta"):
+            return ("", None)
+        k = self.fed.keyframe_every
+        if k > 0 and self._announces % k == 0:
             return ("", None)
         try:
             return (self.last_global_cid,
@@ -238,6 +247,7 @@ class SiloRuntime:
             cid = self.store.put(self._encode())
             self.last_cid = cid
             self.last_global_cid = cid
+            self._announces += 1
             ev = self.cluster.evaluate()
             self.last_self_score = ev["accuracy"] if self.fed.scorer != "loss" \
                 else -ev["loss"]
@@ -472,32 +482,12 @@ class SyncOrchestrator(BaseOrchestrator):
                     if t_close > ts:
                         tr.span_at("phase.chain-wait", f"{sid}/phases",
                                    ts, t_close, round=r)
-            # scoring phase: invert cid->scorers into scorer->cids, so each
-            # scorer makes ONE batched score_round call for its assignments
             assignments = self.ledger.submit(ORCH_NODE, "start_scoring",
                                              logical_time=self.env.now) or {}
-            by_scorer: Dict[str, List[str]] = {}
-            for cid, scorers in assignments.items():
-                entry = self.contract.models[cid]
-                for sid in scorers:
-                    if sid != entry.owner:
-                        by_scorer.setdefault(sid, []).append(cid)
-            for sid in sorted(by_scorer):
-                silo = self._by_id(sid)
-                if silo and silo.alive:
-                    silo.score_round(by_scorer[sid])
-            score_deadline = (self.env.now + self.fed.scorer_deadline_s
-                              if self.fed.scorer_deadline_s > 0 else None)
-
-            def scores_complete():
-                return all(set(e.assigned) <= set(e.scores)
-                           for e in self.contract.get_round_models(r))
-
-            self._run_window(score_deadline, scores_complete)
-            self._reassign_dead_scorers(r, t_round)
-            self._run_window(
-                (score_deadline + self.fed.scorer_deadline_s)
-                if score_deadline is not None else None, scores_complete)
+            if self.fed.scorer == "multikrum":
+                self._score_multikrum(r)
+            else:
+                self._score_per_model(r, t_round, assignments)
             self.ledger.submit(ORCH_NODE, "end_scoring",
                                logical_time=self.env.now)
             for s in self.live():
@@ -509,6 +499,64 @@ class SyncOrchestrator(BaseOrchestrator):
                            t_round, self.env.now, round=r)
         self._finish_obs()
         return self.summary()
+
+    def _score_per_model(self, r: int, t_round: float, assignments: Dict):
+        """Per-model scoring: invert cid->scorers into scorer->cids, so each
+        scorer makes ONE batched score_round call for its assignments; then
+        the scoring window, dead-scorer reassignment and a second window."""
+        by_scorer: Dict[str, List[str]] = {}
+        for cid, scorers in assignments.items():
+            entry = self.contract.models[cid]
+            for sid in scorers:
+                if sid != entry.owner:
+                    by_scorer.setdefault(sid, []).append(cid)
+        for sid in sorted(by_scorer):
+            silo = self._by_id(sid)
+            if silo and silo.alive:
+                silo.score_round(by_scorer[sid])
+        score_deadline = (self.env.now + self.fed.scorer_deadline_s
+                          if self.fed.scorer_deadline_s > 0 else None)
+
+        def scores_complete():
+            return all(set(e.assigned) <= set(e.scores)
+                       for e in self.contract.get_round_models(r))
+
+        self._run_window(score_deadline, scores_complete)
+        self._reassign_dead_scorers(r, t_round)
+        self._run_window(
+            (score_deadline + self.fed.scorer_deadline_s)
+            if score_deadline is not None else None, scores_complete)
+
+    def _score_multikrum(self, r: int):
+        """MultiKRUM scores all models of the round at once (Sync only,
+        paper Table 3). Models are pulled through the decoded cache; a fully
+        int8 round is scored by the fused ``gram_q8`` kernel without any f32
+        [M, N] stack. Every assigned scorer submits its model's score."""
+        entries = self.contract.get_round_models(r)
+        if len(entries) < 2:
+            return
+        silo0 = self.silos[0]
+        reachable, decoded = [], []
+        for e in entries:
+            try:
+                dm = silo0.get_decoded(e.cid)
+                if dm.needs_base:
+                    dm.vec()  # resolve the delta base chain
+                decoded.append(dm)
+                reachable.append(e)
+            except (KeyError, IOError):
+                self.env.emit(obsev.multikrum_fetch_fail(e.cid))
+        if len(reachable) < 2:
+            return
+        scores = multikrum_scores_for_decoded(decoded, self.fed.multikrum_m)
+        for e, sc in zip(reachable, scores):
+            for sid in e.assigned:
+                try:
+                    self.ledger.submit(sid, "submit_score", cid=e.cid,
+                                       score=float(sc),
+                                       logical_time=self.env.now)
+                except PermissionError:
+                    self.env.emit(obsev.tx_revert(sid, "submit_score"))
 
     def _reassign_dead_scorers(self, r: int, t_round: float):
         # deadline pass (paper §3.2): any assigned scorer whose heartbeat

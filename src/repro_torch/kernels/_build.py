@@ -23,7 +23,8 @@ from pathlib import Path
 from typing import Dict, Optional, Sequence
 
 CSRC = Path(__file__).resolve().parent / "csrc"
-SOURCES = ("wsum.cu", "quant.cu", "q8agg.cu")
+SOURCES = ("wsum.cu", "quant.cu", "q8agg.cu", "multikrum.cu")
+HEADERS = ("gram.cuh",)
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
 # no --use_fast_math: it turns x / scale into an approximate division, and
 # quantize must stay bit-exact against the reference
@@ -45,7 +46,7 @@ def _nvcc() -> str:
 
 def library_path() -> Path:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for name in SOURCES:
+    for name in SOURCES + HEADERS:
         h.update((CSRC / name).read_bytes())
     return BUILD_DIR / f"libreprokernels-{h.hexdigest()[:16]}.so"
 

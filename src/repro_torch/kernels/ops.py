@@ -1,9 +1,10 @@
 """Public kernel layer: padding, flattening and dispatch by device.
 
 Twin of ``repro.kernels.ops`` with its padding contract: weighted sums pad
-N to ``wsum.TILE_N``, the fused int8 merge pads to ``q8agg.TILE_N`` and
-``QPB`` scales, and ``quantize`` pads to ``QUANT_BLOCK`` (131072) on every
-device, so wire payloads are byte-identical to the reference's. Each call
+N to ``wsum.TILE_N``, the fused int8 merge and Gram pad to ``q8agg.TILE_N``
+and ``QPB`` scales, the f32 Gram to ``multikrum.TILE_N``, and ``quantize``
+and ``add_q8_delta`` pad to ``QUANT_BLOCK`` (131072) on every device, so
+wire payloads are byte-identical to the reference's. Each call
 goes to its kernel wrapper, which launches the CUDA kernel for a CUDA tensor
 and runs the plain version for a CPU tensor.
 """
@@ -16,8 +17,10 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch import tree
+from repro_torch.kernels import multikrum as _mk
 from repro_torch.kernels import q8agg as _q8
 from repro_torch.kernels import quant as _q
+from repro_torch.kernels import ref as _ref
 from repro_torch.kernels import wsum as _ws
 
 QTILE = _q.TILE                    # scale granularity of the int8 payload
@@ -99,6 +102,25 @@ def spec_length(spec: FlattenSpec) -> int:
 
 
 # --------------------------------------------------------------------------- #
+# MultiKRUM
+# --------------------------------------------------------------------------- #
+
+def _dists(g, sq):
+    return torch.clamp(sq + sq.T - 2.0 * g, min=0.0)
+
+
+def pairwise_dists(x):
+    """x: [M, N] -> pairwise squared L2 [M, M]."""
+    return _dists(*_mk.gram_and_norms(_pad_to(x.to(torch.float32), 1,
+                                              _mk.TILE_N)))
+
+
+def multikrum_scores(x, m: int):
+    """Sum of squared distances to the m nearest peers (lower = better)."""
+    return _ref.krum_from_dists(pairwise_dists(x), m)
+
+
+# --------------------------------------------------------------------------- #
 # Weighted aggregation
 # --------------------------------------------------------------------------- #
 
@@ -126,6 +148,29 @@ def weighted_sum_q8(q, scales, w, n: int = None):
     return _q8.wsum_q8(qp, sp, w)[:n]
 
 
+def add_q8_delta(base, q, scales, n: int = None):
+    """Fused delta-apply: base [n] f32 + dequantized int8 delta, one pass.
+    q: [Np] int8 (Np % QTILE == 0), scales: [Np/QTILE] -> [n] f32 without
+    building the f32 delta (n defaults to len(base))."""
+    n = int(base.shape[0]) if n is None else n
+    if q.shape[0] % QTILE:
+        raise ValueError(f"delta payload must be {QTILE}-aligned")
+    qp = _pad_to(q, 0, QUANT_BLOCK)
+    sp = _pad_to(scales, 0, QUANT_BLOCK // QTILE)
+    bp = F.pad(base[:n].to(torch.float32), (0, qp.shape[0] - n))
+    return _q8.add_q8_delta(bp, qp, sp)[:n]
+
+
+def pairwise_dists_q8(q, scales):
+    """Fused dequantize + pairwise squared L2 of quantized models [M, M]."""
+    return _dists(*_q8.gram_q8(*_pad_q8(q, scales)))
+
+
+def multikrum_scores_q8(q, scales, m: int):
+    """MultiKRUM scores straight off the int8 payloads (lower = better)."""
+    return _ref.krum_from_dists(pairwise_dists_q8(q, scales), m)
+
+
 # --------------------------------------------------------------------------- #
 # int8 compression
 # --------------------------------------------------------------------------- #
@@ -151,17 +196,6 @@ def dequantize_batch(q, scales, n, dtype=torch.float32):
 # Kernels of later slices
 # --------------------------------------------------------------------------- #
 
-def _later(name: str, item: str):
-    def missing(*args, **kwargs):
-        raise NotImplementedError(
-            f"ops.{name} is not ported yet (ROADMAP.md, queue 2 {item})")
-    missing.__name__ = name
-    return missing
-
-
-pairwise_dists = _later("pairwise_dists", "item 8, gram_and_norms")
-multikrum_scores = _later("multikrum_scores", "item 8, gram_and_norms")
-pairwise_dists_q8 = _later("pairwise_dists_q8", "item 7, gram_q8")
-multikrum_scores_q8 = _later("multikrum_scores_q8", "item 7, gram_q8")
-add_q8_delta = _later("add_q8_delta", "item 6, add_q8_delta")
-wkv6 = _later("wkv6", "item 9, wkv6")
+def wkv6(*args, **kwargs):
+    raise NotImplementedError(
+        "ops.wkv6 is not ported yet (ROADMAP.md, queue 2 item 9, wkv6)")

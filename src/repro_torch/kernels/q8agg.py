@@ -1,10 +1,22 @@
-"""Fused int8 aggregation: ``out[n] = sum_m w[m] * s[m, n//1024] * q[m, n]``.
+"""Kernels straight off int8 payloads; none builds the f32 models.
 
-Replaces the Pallas kernel ``repro/kernels/q8agg.py:51`` (``wsum_q8``), the
-cross-silo merge of int8 peer models, which never builds the f32 ``[M, N]``
-matrix. CUDA source: ``csrc/q8agg.cu``. Bound on the card: memory,
-``M*N + 4*M*N/1024 + 4*N`` bytes; one block per quantization tile folds
-``w[m] * s[m, tile]`` once in shared memory and streams the int8 codes.
+``wsum_q8``: ``out[n] = sum_m w[m] * s[m, n//1024] * q[m, n]``, the
+cross-silo merge of int8 peers (replaces ``repro/kernels/q8agg.py:51``).
+Bound: memory, ``M*N + 4*M*N/1024 + 4*N`` bytes; one block per quantization
+tile folds ``w[m] * s[m, tile]`` once in shared memory.
+
+``add_q8_delta``: ``out = base + q * s``, rounded once (an FMA), the rebuild
+of an ``int8-delta`` envelope onto its base (replaces ``q8agg.py:77``).
+Bound: memory, ``9*N + 4*N/1024`` bytes; 4 elements a thread.
+
+``gram_q8``: the Gram matrix and row norms of the dequantized models,
+int8 x int8 -> int32 exact per 1024-tile, scaled and summed across tiles in
+f32 (replaces ``q8agg.py:122``). Bound: memory, ``M*N + 4*M*N/1024`` bytes;
+N splits across blocks by whole tiles, ``__dp4a`` dots each row pair, and a
+second pass sums the blocks' partials in a fixed order (no atomics, so the
+MultiKRUM scores repeat exactly).
+
+CUDA source: ``csrc/q8agg.cu`` (and ``csrc/gram.cuh``).
 """
 from __future__ import annotations
 
@@ -13,16 +25,29 @@ import ctypes
 import torch
 
 from repro_torch.kernels import _build, ref
+from repro_torch.kernels.quant import LANE
 from repro_torch.kernels.quant import TILE as QT
 
 QPB = 4               # quant tiles per block of the reference layout
 TILE_N = QPB * QT     # the padding contract of ops._pad_q8 (ops.py:160-176)
 MAX_M = 1024          # folded weights live in shared memory
+QUANT_BLOCK = QT * LANE   # add_q8_delta's padding contract (ops.QUANT_BLOCK)
+GRAM_MAX_M = 64           # gram_q8: row pairs per block (csrc/gram.cuh)
+GRAM_MAX_BLOCKS = 132 * 8  # one wave of 256-thread blocks on 132 SMs
 
 _KERNEL = _build.register(
     "wsum_q8", "repro_wsum_q8",
     [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
      ctypes.c_int, ctypes.c_int64, ctypes.c_void_p])
+_ADD_DELTA = _build.register(
+    "add_q8_delta", "repro_add_q8_delta",
+    [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+     ctypes.c_int64, ctypes.c_void_p])
+_GRAM = _build.register(
+    "gram_q8", "repro_gram_q8",
+    [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+     ctypes.c_void_p, ctypes.c_int, ctypes.c_int64, ctypes.c_int,
+     ctypes.c_void_p])
 
 
 def wsum_q8(q, scales, w):
@@ -44,3 +69,54 @@ def wsum_q8(q, scales, w):
     _KERNEL(_build.ptr(q), _build.ptr(scales), _build.ptr(w), _build.ptr(out),
             M, N, _build.stream_of(q))
     return out
+
+
+def add_q8_delta(base, q, scales):
+    """base: [N] f32, q: [N] int8 (N % QUANT_BLOCK == 0), scales: [N/QT]
+    -> [N] f32 = base + q * s, one rounding."""
+    if q.device.type == "cpu":
+        return ref.add_q8_delta(base, q, scales, QT)
+    if q.device.type != "cuda":
+        raise ValueError(f"add_q8_delta: no kernel for device {q.device}")
+    (N,) = q.shape
+    if q.dtype != torch.int8 or N % QUANT_BLOCK or \
+            tuple(base.shape) != (N,) or tuple(scales.shape) != (N // QT,):
+        raise ValueError(f"add_q8_delta: bad inputs base{tuple(base.shape)} "
+                         f"q{tuple(q.shape)} {q.dtype} "
+                         f"scales{tuple(scales.shape)} "
+                         f"(N % {QUANT_BLOCK} == 0)")
+    q = q.contiguous()
+    base = base.to(device=q.device, dtype=torch.float32).contiguous()
+    scales = scales.to(torch.float32).contiguous()
+    out = torch.empty((N,), dtype=torch.float32, device=q.device)
+    _ADD_DELTA(_build.ptr(base), _build.ptr(q), _build.ptr(scales),
+               _build.ptr(out), N, _build.stream_of(q))
+    return out
+
+
+def gram_q8(q, scales):
+    """q: [M, N] int8 (N % TILE_N == 0, M <= 64); scales: [M, N/QT]
+    -> (G [M, M] f32, sq [M, 1] f32) of the dequantized models."""
+    if q.device.type == "cpu":
+        return ref.gram_q8(q, scales, QT)
+    if q.device.type != "cuda":
+        raise ValueError(f"gram_q8: no kernel for device {q.device}")
+    M, N = q.shape
+    if q.dtype != torch.int8 or N % TILE_N or not 1 <= M <= GRAM_MAX_M or \
+            tuple(scales.shape) != (M, N // QT):
+        raise ValueError(f"gram_q8: bad inputs q{tuple(q.shape)} {q.dtype} "
+                         f"scales{tuple(scales.shape)} (N % {TILE_N} == 0, "
+                         f"1 <= M <= {GRAM_MAX_M})")
+    return launch_gram(_GRAM, q.contiguous(), N // QT, M, N,
+                 scales.to(torch.float32).contiguous())
+
+
+def launch_gram(kernel, x, tiles, M, N, *extra):
+    """Launch a two-pass Gram kernel over ``tiles`` column tiles of x."""
+    blocks = min(tiles, GRAM_MAX_BLOCKS)
+    part = torch.empty((blocks, M, M), dtype=torch.float32, device=x.device)
+    g = torch.empty((M, M), dtype=torch.float32, device=x.device)
+    sq = torch.empty((M, 1), dtype=torch.float32, device=x.device)
+    kernel(_build.ptr(x), *(_build.ptr(t) for t in extra), _build.ptr(part),
+           _build.ptr(g), _build.ptr(sq), M, N, blocks, _build.stream_of(x))
+    return g, sq

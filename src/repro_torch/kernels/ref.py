@@ -9,6 +9,27 @@ from __future__ import annotations
 import torch
 
 
+def multikrum_dists(x):
+    """x: [M, N] flattened models -> pairwise squared L2 [M, M] (f32)."""
+    xf = x.to(torch.float32)
+    sq = torch.sum(xf * xf, dim=1)
+    d = sq[:, None] + sq[None, :] - 2.0 * (xf @ xf.T)
+    return torch.clamp(d, min=0.0)
+
+
+def krum_from_dists(d, m: int):
+    """MultiKRUM score per model from its [M, M] distances: the sum of its
+    min(m, M-1) smallest distances to the others (lower = more central)."""
+    M = d.shape[0]
+    d = d + torch.diag(torch.full((M,), float("inf"), device=d.device))
+    return torch.sort(d, dim=1).values[:, :min(m, M - 1)].sum(dim=1)
+
+
+def multikrum_scores(x, m: int):
+    """MultiKRUM score per model (lower = better). x: [M, N]."""
+    return krum_from_dists(multikrum_dists(x), m)
+
+
 def weighted_sum(x, w):
     """x: [M, N] models, w: [M] weights -> [N] aggregate (f32 accumulate)."""
     return torch.einsum("m,mn->n", w.to(torch.float32),
@@ -34,6 +55,19 @@ def dequantize_int8(q, scales, tile: int = 1024):
     return (qt * scales[:, None]).reshape(-1)
 
 
+def add_q8_delta(base, q, scales, tile: int = 1024):
+    """Fused int8 delta-apply: base [N] f32 + q [N] int8 * scales [N/tile]
+    -> [N] f32. ``base + q*s`` is evaluated in float64 (q*s is exact there)
+    and rounded once to float32, as a fused multiply-add rounds it: the
+    reference's default (Pallas) path compiles ``b + q*s`` into an FMA, and
+    its jnp oracle, which rounds the product first, differs from it in the
+    last bit for about a quarter of the elements. The reconstructed model is
+    the next round's delta base, so those bits reach the wire and the CIDs."""
+    N = q.shape[0]
+    s = scales.to(torch.float64).repeat_interleave(tile)[:N]
+    return (base.to(torch.float64) + q.to(torch.float64) * s).to(torch.float32)
+
+
 def dequantize_rows(q, scales, tile: int = 1024):
     """q: [M, N] int8, scales: [M, N/tile] -> [M, N] f32."""
     M, N = q.shape
@@ -46,3 +80,15 @@ def wsum_q8(q, scales, w, tile: int = 1024):
     w: [M] -> [N] f32."""
     x = dequantize_rows(q, scales, tile)
     return torch.einsum("m,mn->n", w.to(torch.float32), x)
+
+
+def gram_and_norms(x):
+    """x: [M, N] -> (G = X X^T [M, M] f32, sq [M, 1] f32)."""
+    xf = x.to(torch.float32)
+    return xf @ xf.T, torch.sum(xf * xf, dim=1, keepdim=True)
+
+
+def gram_q8(q, scales, tile: int = 1024):
+    """Dequantize, then X X^T and the row norms. q: [M, N] int8, scales:
+    [M, N/tile] -> (G [M, M] f32, sq [M, 1] f32)."""
+    return gram_and_norms(dequantize_rows(q, scales, tile))

@@ -80,20 +80,22 @@ def test_entry_point_defaults_to_the_gpu():
 
 @pytest.mark.parametrize("kw,match", [
     (dict(mode="async"), "AsyncOrchestrator"),
-    (dict(scorer="multikrum"), "scoring"),
+    (dict(net="wan-uniform"), "net fabric"),
     (dict(edge_per_silo=2), "edge"),
-    (dict(compression="int8-delta"), None),
+    (dict(scorer="multikrum", compression="int8-delta"), None),
 ])
 def test_later_slices_raise(kw, match):
-    from repro_torch.config import FedConfig
+    from repro_torch.config import FedConfig, NetConfig
     from repro_torch.configs import get_config
     from repro_torch.core.builder import build_image_experiment
+    if "net" in kw:
+        kw = dict(net=NetConfig(preset=kw["net"]))
     fed = FedConfig(n_silos=3, clients_per_silo=1, rounds=1, **kw)
-    if match is None:   # int8-delta builds; its first encode raises
+    if match is None:   # ported by now: builds and runs
         orch = build_image_experiment(get_config("paper-cnn"), fed,
                                       n_train=60, n_test=30, device="cpu")
-        with pytest.raises(NotImplementedError, match="add_q8_delta"):
-            orch.run(1)
+        orch.run(2)
+        assert orch.ledger.verify()
         return
     with pytest.raises(NotImplementedError, match=match):
         build_image_experiment(get_config("paper-cnn"), fed, n_train=60,

@@ -10,7 +10,7 @@ import numpy as np
 import pytest
 import torch
 
-from repro_torch.kernels import _build, ops, q8agg, quant, ref, wsum
+from repro_torch.kernels import _build, multikrum, ops, q8agg, quant, ref, wsum
 
 
 def _rng_tensor(shape, seed, scale=1.0):
@@ -43,8 +43,18 @@ def test_cpu_tensors_take_the_plain_versions_and_launch_nothing():
     q, s, wq = _q8_inputs(2, 4096, 2)
     assert torch.equal(quant.dequantize(q, s), ref.dequantize_rows(q, s))
     assert torch.equal(q8agg.wsum_q8(q, s, wq), ref.wsum_q8(q, s, wq))
+    base = _rng_tensor((131072,), 9)
+    qd, sd, _ = _q8_inputs(1, 131072, 10)
+    assert torch.equal(q8agg.add_q8_delta(base, qd[0], sd[0]),
+                       ref.add_q8_delta(base, qd[0], sd[0]))
+    for a, b in zip(q8agg.gram_q8(q, s), ref.gram_q8(q, s)):
+        assert torch.equal(a, b)
+    xg = _rng_tensor((3, 2048), 11)
+    for a, b in zip(multikrum.gram_and_norms(xg), ref.gram_and_norms(xg)):
+        assert torch.equal(a, b)
     assert _build.launch_counts() == before
-    assert set(before) == {"weighted_sum", "quantize", "dequantize", "wsum_q8"}
+    assert set(before) == {"weighted_sum", "quantize", "dequantize", "wsum_q8",
+                           "add_q8_delta", "gram_q8", "gram_and_norms"}
 
 
 @pytest.mark.parametrize("call", [
@@ -52,7 +62,12 @@ def test_cpu_tensors_take_the_plain_versions_and_launch_nothing():
     lambda t: quant.quantize(t((1024,))),
     lambda t: quant.dequantize(t((1024,), torch.int8), t((1,))),
     lambda t: q8agg.wsum_q8(t((2, 4096), torch.int8), t((2, 4)), t((2,))),
-], ids=["weighted_sum", "quantize", "dequantize", "wsum_q8"])
+    lambda t: q8agg.add_q8_delta(t((131072,)), t((131072,), torch.int8),
+                                 t((128,))),
+    lambda t: q8agg.gram_q8(t((2, 4096), torch.int8), t((2, 4))),
+    lambda t: multikrum.gram_and_norms(t((2, 2048))),
+], ids=["weighted_sum", "quantize", "dequantize", "wsum_q8", "add_q8_delta",
+        "gram_q8", "gram_and_norms"])
 def test_devices_without_a_kernel_raise(call):
     meta = lambda shape, dtype=torch.float32: torch.empty(shape, dtype=dtype,
                                                           device="meta")
@@ -167,6 +182,67 @@ def test_gpu_wsum_q8(m, n):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("n", [131072, 4 * 131072])
+def test_gpu_add_q8_delta_bit_exact(n):
+    """fmaf on the card, one float64 rounding on the CPU: the same bits."""
+    dev = _cuda()
+    q, s, _ = _q8_inputs(1, n, n)
+    base = _rng_tensor((n,), n + 1, scale=0.05).to(dev)
+    q, s = q[0].to(dev), s[0].to(dev)
+    got = _launched("add_q8_delta", lambda: q8agg.add_q8_delta(base, q, s))
+    assert torch.equal(got, ref.add_q8_delta(base, q, s))
+    assert torch.equal(got.cpu(), ref.add_q8_delta(base.cpu(), q.cpu(),
+                                                   s.cpu()))
+
+
+def _assert_gram(got, want, x):
+    """G and sq within 2^-16 * ‖x_i‖ * ‖x_j‖: float32 sums over N in other
+    orders (the kernel: per block, then across blocks; cuBLAS: its own)."""
+    norms = x.double().pow(2).sum(1).sqrt()
+    bound = 2.0 ** -16 * norms[:, None] * norms[None, :]
+    assert ((got[0].double() - want[0].double()).abs() <= bound).all()
+    assert ((got[1][:, 0].double() - want[1][:, 0].double()).abs()
+            <= bound.diagonal()).all()
+    assert torch.equal(got[0], got[0].T)                   # fixed order
+    assert torch.equal(got[1][:, 0], got[0].diagonal())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("m,n", [(1, 4096), (3, 131072), (8, 12288),
+                                 (64, 4096), (5, 1024 * 2000)])
+def test_gpu_gram_q8(m, n):
+    dev = _cuda()
+    q, s, _ = _q8_inputs(m, n, m * n)
+    q, s = q.to(dev), s.to(dev)
+    got = _launched("gram_q8", lambda: q8agg.gram_q8(q, s))
+    _assert_gram(got, ref.gram_q8(q, s), ref.dequantize_rows(q, s))
+    again = q8agg.gram_q8(q, s)          # no atomics: the same bits again
+    assert torch.equal(again[0], got[0]) and torch.equal(again[1], got[1])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("m,n", [(1, 2048), (3, 63488), (8, 2048 * 1100),
+                                 (64, 4096), (23, 6144)])
+def test_gpu_gram_and_norms(m, n):
+    dev = _cuda()
+    x = _rng_tensor((m, n), m + n).to(dev)
+    got = _launched("gram_and_norms", lambda: multikrum.gram_and_norms(x))
+    _assert_gram(got, ref.gram_and_norms(x), x)
+    again = multikrum.gram_and_norms(x)
+    assert torch.equal(again[0], got[0]) and torch.equal(again[1], got[1])
+
+
+@pytest.mark.gpu
+def test_gpu_gram_wrappers_refuse_more_than_64_models():
+    dev = _cuda()
+    with pytest.raises(ValueError, match="M <= 64"):
+        multikrum.gram_and_norms(torch.zeros((65, 2048), device=dev))
+    with pytest.raises(ValueError, match="M <= 64"):
+        q8agg.gram_q8(torch.zeros((65, 4096), dtype=torch.int8, device=dev),
+                      torch.ones((65, 4), device=dev))
+
+
+@pytest.mark.gpu
 def test_gpu_ops_match_the_cpu_path():
     """The ops layer (padding, slicing) gives the CPU path's numbers."""
     dev = _cuda()
@@ -176,6 +252,12 @@ def test_gpu_ops_match_the_cpu_path():
     xs, w = _rng_tensor((2, 62_006), 8), torch.tensor([0.5, 0.5])
     torch.testing.assert_close(ops.weighted_sum(xs.to(dev), w.to(dev)).cpu(),
                                ops.weighted_sum(xs, w), rtol=1e-6, atol=1e-7)
+    # distances cancel: within a few ulps of the largest squared norm
+    xm = _rng_tensor((3, 62_006), 9)
+    d = ops.pairwise_dists(xm.to(dev)).cpu()
+    assert float((d - ops.pairwise_dists(xm)).abs().max()) <= \
+        4 * 2.0 ** -16 * float(xm.pow(2).sum(1).max())
+    assert torch.equal(d.diagonal(), torch.zeros(3))   # G[i, i] == sq[i]
 
 
 @pytest.mark.gpu

@@ -117,9 +117,7 @@ def test_flatten_follows_jax_leaf_order():
     assert stacked["conv1"]["w"].shape == (2, 5, 5, 3, 6)
 
 
-@pytest.mark.parametrize("name", ["pairwise_dists", "multikrum_scores",
-                                  "pairwise_dists_q8", "multikrum_scores_q8",
-                                  "add_q8_delta", "wkv6"])
+@pytest.mark.parametrize("name", ["wkv6"])
 def test_later_slice_kernels_raise(name):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         getattr(tops, name)(torch.zeros(2, 4))

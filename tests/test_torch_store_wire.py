@@ -59,7 +59,8 @@ def test_params_and_checkpoint_bytes_identical(ref_params):
 
 @pytest.mark.parametrize("method,base", [("raw", False), ("int8", False),
                                          ("topk-delta", False),
-                                         ("topk-delta", True)])
+                                         ("topk-delta", True),
+                                         ("int8-delta", True)])
 def test_envelope_bytes_identical_and_cross_decode(method, base):
     v, b = _vec(1), (_vec(2) if base else None)
     kw = dict(base_cid="bafyparent" if base else "", topk_frac=0.01)
@@ -83,6 +84,7 @@ def test_envelope_bytes_identical_and_cross_decode(method, base):
     from_t = jwire.decode_store(jstore.deserialize_pytree(tb),
                                 resolver=resolver_j)
     assert from_j.is_q8 == from_t.is_q8 == (method == "int8")
+    assert from_j.needs_base == from_t.needs_base == base
     np.testing.assert_array_equal(from_j.vec().numpy(),
                                   np.asarray(from_t.vec()))
 
@@ -97,14 +99,16 @@ def test_params_roundtrip_and_non_envelopes_are_refused(ref_params):
 
 
 def test_int8_delta_waits_for_its_slice():
-    with pytest.raises(NotImplementedError, match="add_q8_delta"):
-        twire.encode_vec(torch.from_numpy(_vec(5)), "int8-delta",
-                         base_vec=torch.from_numpy(_vec(6)), base_cid="x")
+    """Its slice has come: a reference int8-delta payload decodes in the
+    port, and without a base to resolve it refuses rather than guessing."""
     je = jwire.encode_vec(jnp.asarray(_vec(5)), "int8-delta",
                           base_vec=jnp.asarray(_vec(6)), base_cid="bafyx")
     flat = jstore.deserialize_pytree(jstore.serialize_pytree(je.to_store()))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        twire.decode_store(flat, "cpu")
+    dm = twire.decode_store(flat, "cpu")
+    assert dm.method == "int8-delta" and dm.base_cid == "bafyx"
+    assert dm.tiles.dtype == torch.int32 and dm.q.dtype == torch.int8
+    with pytest.raises(KeyError, match="resolver"):
+        dm.vec()
 
 
 def test_store_nodes_fetch_from_peers_and_cache_decodes():
