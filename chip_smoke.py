@@ -9,9 +9,10 @@ Phases, in order; any failure exits non-zero and prints no result:
   2. build the CUDA kernels from ``src/repro_torch/kernels/csrc``;
   3. check each kernel against its plain version on the card, at the main
      path's shapes (paper CNN: N = 62,006 padded, M or K = 2, M = 3 for the
-     MultiKRUM Gram) and at a large shape (N = 2^28; M = 4 for f32 sums,
-     8 for int8 and the Gram, so M*N >= 2^31), and time both (CUDA events,
-     warm, averaged) beside the least time the card could take;
+     MultiKRUM Gram; ``wkv6``: the serving prefill, B 4, T 64, H 32, hs 64)
+     and at a large shape (N = 2^28; M = 4 for f32 sums, 8 for int8 and the
+     Gram, so M*N >= 2^31; ``wkv6``: B 8, T 4096), and time both (CUDA
+     events, warm, averaged) beside the least time the card could take;
   4. run the main paths on the card, each with the launch counts set to 0
      just before it: a 2-round Sync UnifyFL experiment of the paper CNN
      with int8 compression and accuracy scoring, a 1-round uncompressed
@@ -21,7 +22,16 @@ Phases, in order; any failure exits non-zero and prints no result:
      int8-delta runs agree with the same runs on the CPU (the plain
      versions); then profile one more int8 round and two more int8-delta
      MultiKRUM rounds (device busy share, top kernels by device time);
-  5. print the ``kernels`` JSON line, then the result line.
+  5. serve RWKV-6 1.6B (``configs/rwkv6_1_6b.py``: 24 layers, d_model
+     2048, 32 heads of 64, vocab 65,536, bf16) at its full width on the
+     card through ``repro_torch.launch.serve.serve``, twice (4 x 64 prompt
+     + 32 tokens, the reference CLI's defaults; 4 x 1000 + 8), each with the
+     launch counts set to 0 just before it: exactly 24 ``wkv6`` launches a
+     prefill and none from decode steps, every logit finite; profile one
+     more request; run the CLI entry point once (``main``, 4 x 64 + 4); hold
+     the same width at depth 2 against the port on the CPU (prefill logits
+     and state, 8 teacher-forced decode steps);
+  6. print the ``kernels`` JSON line, then the result line.
 
 The card's peak rates are the published H100 SXM figures; a card capped
 below 700 W runs slower, which is why its power limit is printed beside the
@@ -41,6 +51,9 @@ HBM_BYTES_PER_S = 3.35e12      # H100 SXM, NVIDIA data sheet
 F32_FLOPS = 67e12              # H100 SXM float32 outside the tensor cores
 INT8_OPS = 1979e12             # H100 SXM int8 tensor-core rate, dense
 GRAM_ULPS = 1.0                # Gram tolerance, sqrt(N) ulps (check_gram)
+WKV_REL = 1e-5                 # wkv6 tolerance, of max|y| and max|S|
+BF16_ULP = 2.0 ** -7           # one bf16 ulp, relative
+SERVE_ARCH = "rwkv6-1.6b"
 MAIN_N = 62_006                # paper-cnn params (configs/paper_cnn.py)
 LARGE_N = 1 << 28
 ACC_TOL = 0.05                 # global accuracy, card vs CPU (see phase 4)
@@ -229,6 +242,59 @@ def check_kernels(shape: str, gen, iters: int):
     return rows
 
 
+def wkv6_inputs(B: int, T: int, H: int, hs: int, gen):
+    """The model's dtypes and ranges: bf16 r, k, v (unit normal, as after
+    the projections), f32 w = exp(-exp(decay_base + dw)) with decay_base
+    uniform in [-7, -1] per channel (``init_params``), f32 u in [0, 0.5]
+    and a random f32 state."""
+    n = lambda *s: torch.randn(s, generator=gen, device="cuda")
+    r, k, v = (n(B, T, H, hs).to(torch.bfloat16) for _ in range(3))
+    base = torch.rand((H, hs), generator=gen, device="cuda") * -6.0 - 1.0
+    w = torch.exp(-torch.exp(base + 0.5 * n(B, T, H, hs)))
+    u = torch.rand((H, hs), generator=gen, device="cuda") * 0.5
+    return r, k, v, w, u, n(B, H, hs, hs)
+
+
+def check_wkv6(shape: str, gen, iters: int) -> dict:
+    """wkv6 against its plain token scan: |dy| <= WKV_REL * max|y| plus one
+    bf16 ulp of |y| (y is bf16: the two may round a float32 value to either
+    side of a bf16 boundary), |dS| <= WKV_REL * max|S| (float32 sums over
+    the key index in another order; the scan itself sits within about 1e-6
+    of float64 at T <= 4096)."""
+    from repro_torch.kernels import ref, rwkv6
+    B, T, H, hs = (8, 4096, 32, 64) if shape == "large" else (4, 64, 32, 64)
+    args = wkv6_inputs(B, T, H, hs, gen)
+    (y, s), (y0, s0) = rwkv6.wkv6(*args), ref.wkv6_naive(*args)
+    torch.cuda.synchronize()
+    dy = (y.float() - y0.float()).abs()
+    ds = (s - s0).abs()
+    ymax, smax = float(y0.float().abs().max()), float(s0.abs().max())
+    ok = bool((dy <= WKV_REL * ymax + BF16_ULP * y0.float().abs()).all())
+    if not ok or float(ds.max()) > WKV_REL * smax:
+        fail(f"wkv6 {shape}: max |dy| {float(dy.max())} (max|y| {ymax}), "
+             f"max |dS| {float(ds.max())} (max|S| {smax})")
+    if not torch.equal(rwkv6.wkv6(*args)[0], y):
+        fail(f"wkv6 {shape}: a rerun gives other bits")
+    # the least work a token and head: y = S^T r (2 hs^2) plus the bonus
+    # v_j * sum_i r_i u_i k_i (5 hs: the sum does not depend on j), and
+    # S <- diag(w) S + k v^T (3 hs^2)
+    n = B * T * H * hs
+    b_ms, b_by = bound(12 * n + 2 * B * H * hs * hs * 4, (5.0 * hs + 5) * n)
+    row = {"name": "wkv6", "shape": shape, "B": B, "T": T, "H": H, "hs": hs,
+           "max_abs_err": max(float(dy.max()), float(ds.max())),
+           "max_abs_err_y": float(dy.max()), "max_abs_err_state":
+           float(ds.max()), "max_abs_y": ymax, "max_abs_state": smax,
+           "check": f"|dy| <= {WKV_REL} max|y| + 2^-7 |y|, "
+                    f"|dS| <= {WKV_REL} max|S|",
+           "kernel_ms": cuda_ms(lambda: rwkv6.wkv6(*args), iters),
+           "plain_ms": cuda_ms(lambda: ref.wkv6_naive(*args),
+                               max(2, iters // 20)),
+           "library_ms": None, "bound_ms": b_ms, "bound_by": b_by,
+           "device": torch.cuda.get_device_name(0)}
+    print(json.dumps(row), flush=True)
+    return row
+
+
 def check_gram(name: str, shape: str, got, want, x) -> float:
     """G and sq against the plain version and against the same sums in
     float64, within GRAM_ULPS * sqrt(N) float32 ulps of |x_i| * |x_j|: a
@@ -351,6 +417,168 @@ def check_against_cpu(name: str, orch, ge, cpu_run) -> None:
                  "on the CPU")
 
 
+# --------------------------------------------------------------------------- #
+# Phase 5: serving RWKV-6 1.6B
+# --------------------------------------------------------------------------- #
+
+def serve_request(model, params, batch: int, prompt_len: int, gen: int,
+                  seed: int) -> dict:
+    """One batched request through ``serve`` with the launch counts set to
+    0 just before it; its timings, peak memory and ``wkv6`` launches."""
+    from repro_torch.kernels import _build
+    from repro_torch.launch.serve import serve
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    prompts = torch.randint(0, model.cfg.vocab_size, (batch, prompt_len),
+                            generator=g, device="cuda")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _build.reset_launches()
+    res = serve(model, params, prompts, gen, "cuda")
+    launches = _build.launch_counts()
+    line = {"phase": f"serve-{SERVE_ARCH}", "batch": batch,
+            "prompt_len": prompt_len, "gen": gen,
+            "prefill_ms": res["prefill_s"] * 1e3,
+            "prefill_tok_s": batch * prompt_len / res["prefill_s"],
+            "decode_ms_per_token": res["decode_s"] / max(1, gen - 1) * 1e3,
+            "decode_tok_s": batch * (gen - 1) / max(res["decode_s"], 1e-9),
+            "peak_mem_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
+            "wkv6_launches": launches["wkv6"],
+            "other_launches": sum(v for k, v in launches.items()
+                                  if k != "wkv6"),
+            "finite": res["finite"], "ids_head": res["ids"][0, :8].tolist(),
+            "device": torch.cuda.get_device_name(0)}
+    print(json.dumps(line), flush=True)
+    if not res["finite"]:
+        fail(f"serve {batch}x{prompt_len}: non-finite logits")
+    if launches["wkv6"] != model.cfg.n_layers or line["other_launches"]:
+        fail(f"serve {batch}x{prompt_len}: wkv6 launched "
+             f"{launches['wkv6']} times, want {model.cfg.n_layers} (one a "
+             f"layer, one prefill, none from decode steps); others "
+             f"{line['other_launches']}")
+    return line
+
+
+def serve_cli() -> dict:
+    """The user's entry point, ``python -m repro_torch.launch.serve --arch
+    rwkv6-1.6b --preset full`` (its own seeded init on the card), with the
+    launch counts set to 0 just before it."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import _build
+    from repro_torch.launch.serve import main as serve_main
+    n_layers = get_config(SERVE_ARCH).n_layers
+    _build.reset_launches()
+    ids = serve_main(["--arch", SERVE_ARCH, "--preset", "full", "--batch",
+                      "4", "--prompt-len", "64", "--gen", "4"])
+    line = {"phase": f"serve-cli-{SERVE_ARCH}", "ids_shape": list(ids.shape),
+            "launches": _build.launch_counts()}
+    print(json.dumps(line), flush=True)
+    if ids.shape != (4, 4) or line["launches"]["wkv6"] != n_layers:
+        fail(f"serve CLI: ids {ids.shape}, launches {line['launches']}")
+    return line
+
+
+def cross_check_serving_on_cpu(steps: int = 8) -> dict:
+    """The full width at depth 2, bf16, params drawn on the card and copied
+    to the CPU, 4 x 64 prompts: prefill logits and state, then ``steps``
+    decode steps fed the card's greedy tokens, on the card and on the CPU
+    (the plain versions). Tolerance per output: twice the CPU's own bf16
+    rounding error, i.e. of how far its bf16 result lies from a float32
+    evaluation of the same weights on the CPU (and at least one bf16 ulp
+    of the largest magnitude): a card as close to float32 as the CPU lies
+    within that of it."""
+    from repro_torch.config import replace
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_model
+    from repro_torch.tree import tree_map
+    cfg = replace(get_config(SERVE_ARCH), n_layers=2)
+    cfg32 = replace(cfg, param_dtype="float32", compute_dtype="float32")
+    model = build_model(cfg)
+    g = torch.Generator(device="cuda").manual_seed(1)
+    params = model.init(g, "cuda")
+    prompts = torch.randint(0, cfg.vocab_size, (4, 64), generator=g,
+                            device="cuda")
+
+    def run(m, p, dev, feed=None):
+        """Prefill, then ``steps`` decode steps fed ``feed`` (None: the
+        run's own greedy picks). Returns the outputs and the fed tokens."""
+        outs, fed = [], []
+        with torch.inference_mode():
+            logits, st = m.prefill(p, {"tokens": prompts.to(dev)})
+            outs += [logits[:, -1], st["wkv"], st["tm_x"], st["cm_x"]]
+            tok = torch.argmax(logits[:, -1], dim=-1)
+            for i in range(steps):
+                tok = tok if feed is None else feed[i].to(dev)
+                fed.append(tok)
+                logits, st = m.decode_step(p, {"token": tok, "pos": 64 + i},
+                                           st)
+                outs += [logits, st["wkv"]]
+                tok = torch.argmax(logits, dim=-1)
+        return [o.float().cpu() for o in outs], fed
+
+    card, feed = run(model, params, "cuda")
+    host = tree_map(lambda t: t.cpu(), params)
+    cpu, _ = run(model, host, "cpu", feed)
+    cpu32, _ = run(build_model(cfg32), tree_map(lambda t: t.float(), host),
+                   "cpu", feed)
+    worst = 0.0
+    for i, (a, b, c) in enumerate(zip(card, cpu, cpu32)):
+        top = float(b.abs().max())
+        tol = max(2.0 * float((b - c).abs().max()), BF16_ULP * top)
+        err = float((a - b).abs().max())
+        worst = max(worst, err / tol)
+        if not err <= tol:
+            fail(f"serving cross-check output {i}: card vs CPU {err}, "
+                 f"tol {tol} (CPU bf16 vs f32 {float((b - c).abs().max())})")
+    line = {"phase": "serve-cross-check-cpu", "arch": SERVE_ARCH,
+            "n_layers": 2, "batch": 4, "prompt_len": 64, "decode_steps":
+            steps, "outputs": len(card),
+            "prefill_logits_err": float((card[0] - cpu[0]).abs().max()),
+            "prefill_logits_max": float(cpu[0].abs().max()),
+            "prefill_logits_tol": max(
+                2.0 * float((cpu[0] - cpu32[0]).abs().max()),
+                BF16_ULP * float(cpu[0].abs().max())),
+            "worst_err_of_tol": worst,
+            "tol": "2 x max|cpu_bf16 - cpu_f32| (>= 2^-7 max|cpu_bf16|), "
+                   "per output"}
+    print(json.dumps(line), flush=True)
+    return line
+
+
+def profile_serving(model, params) -> dict:
+    """One 4 x 64 + 8 request on the card under ``torch.profiler``: the
+    device's busy share of the request's wall time and the kernels that
+    fill it. Its launches are not counted toward the main path."""
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.launch.serve import serve
+    g = torch.Generator(device="cuda").manual_seed(2)
+    prompts = torch.randint(0, model.cfg.vocab_size, (4, 64), generator=g,
+                            device="cuda")
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        res = serve(model, params, prompts, 8, "cuda")
+        wall = time.perf_counter() - t0
+    kern = [e for e in prof.key_averages()
+            if e.device_type == torch.autograd.DeviceType.CUDA]
+    busy_us = sum(e.self_device_time_total for e in kern)
+    top = sorted(kern, key=lambda e: -e.self_device_time_total)[:8]
+    wkv = [e for e in kern if "wkv6_kernel" in e.key]
+    return {"phase": f"profile-serve-{SERVE_ARCH}", "batch": 4,
+            "prompt_len": 64, "gen": 8, "wall_s": wall,
+            "prefill_ms": res["prefill_s"] * 1e3,
+            "decode_ms_per_token": res["decode_s"] / 7 * 1e3,
+            "device_busy_s": busy_us / 1e6,
+            "device_idle_share": 1.0 - busy_us / 1e6 / wall,
+            "device_kernels": len(kern),
+            "wkv6_kernel": {"count": sum(e.count for e in wkv),
+                            "ms": sum(e.self_device_time_total
+                                      for e in wkv) / 1e3},
+            "top_kernels": [{"name": e.key[:80], "count": e.count,
+                             "ms": e.self_device_time_total / 1e3}
+                            for e in top]}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device visible", file=sys.stderr)
@@ -380,6 +608,8 @@ def main() -> int:
     gen = torch.Generator(device="cuda").manual_seed(0)
     main_rows = check_kernels("main", gen, iters=200)
     check_kernels("large", gen, iters=5)
+    main_rows.append(check_wkv6("main", gen, iters=200))
+    check_wkv6("large", gen, iters=20)
 
     # phase 4: the main path, int8 (every kernel) then uncompressed
     _build.reset_launches()
@@ -437,7 +667,32 @@ def main() -> int:
     print(json.dumps(profile_rounds("int8", "accuracy", 1)), flush=True)
     print(json.dumps(profile_rounds("int8-delta", "multikrum", 2)), flush=True)
 
-    # phase 5: the kernels line and the result line
+    # phase 5: serve RWKV-6 1.6B at full width, then the depth-2 CPU check
+    from repro_torch.configs import get_config
+    from repro_torch.core.builder import resolve_device
+    from repro_torch.models import build_model
+    resolve_device("cuda")
+    model = build_model(get_config(SERVE_ARCH))
+    t0 = time.perf_counter()
+    params = model.init(torch.Generator(device="cuda").manual_seed(0), "cuda")
+    torch.cuda.synchronize()
+    n_params = sum(t.numel() for t in tree.leaves(params))
+    print(json.dumps({"phase": f"init-{SERVE_ARCH}", "params": n_params,
+                      "bytes": sum(t.numel() * t.element_size()
+                                   for t in tree.leaves(params)),
+                      "init_s": time.perf_counter() - t0}), flush=True)
+    from repro_torch.launch.serve import serve
+    serve(model, params, torch.zeros((4, 64), dtype=torch.long,
+                                     device="cuda"), 2, "cuda")   # warm-up
+    serving = [serve_request(model, params, 4, 64, 32, seed=10),
+               serve_request(model, params, 4, 1000, 8, seed=11)]
+    print(json.dumps(profile_serving(model, params)), flush=True)
+    serve_cli()
+    del params
+    torch.cuda.empty_cache()
+    cross_check_serving_on_cpu()
+
+    # phase 6: the kernels line and the result line
     meta = {
         "weighted_sum": ("src/repro_torch/kernels/csrc/wsum.cu",
                          "src/repro/kernels/wsum.py:27"),
@@ -453,12 +708,15 @@ def main() -> int:
                     "src/repro/kernels/q8agg.py:122"),
         "gram_and_norms": ("src/repro_torch/kernels/csrc/multikrum.cu",
                            "src/repro/kernels/multikrum.py:40"),
+        "wkv6": ("src/repro_torch/kernels/csrc/wkv6.cu",
+                 "src/repro/kernels/rwkv6.py:68"),
     }
     # each kernel's launches on the main path that runs it
     path_launches = {k: launches[k] for k in
                      ("weighted_sum", "quantize", "dequantize", "wsum_q8")}
     path_launches.update({k: launches_d[k] for k in
                           ("add_q8_delta", "gram_q8", "gram_and_norms")})
+    path_launches["wkv6"] = sum(r["wkv6_launches"] for r in serving)
     kernels = []
     for r in main_rows:
         if r["name"] not in meta:      # dequantize_k1: same kernel, K = 1

@@ -34,7 +34,8 @@ class SiloSpec:
 def resolve_device(device=None) -> torch.device:
     """``None`` -> ``cuda``. A CUDA device must exist; on it the float32
     convolutions and matmuls run in full float32 (TF32 off), as the
-    reference computes (``paper_cnn.compute_dtype``)."""
+    reference computes (``paper_cnn.compute_dtype``), and bf16 matmuls
+    reduce in float32."""
     dev = torch.device("cuda" if device is None else device)
     if dev.type == "cuda":
         if not torch.cuda.is_available():
@@ -43,6 +44,8 @@ def resolve_device(device=None) -> torch.device:
                 "the caller passes device='cpu'")
         torch.backends.cudnn.allow_tf32 = False
         torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = \
+            False
     return dev
 
 

@@ -1,7 +1,8 @@
 """Build and bind the CUDA kernel library (plain C interface over ctypes).
 
-``csrc/*.cu`` compile at first use, in ONE ``nvcc`` call, into a shared
-library under ``build/kernels/`` at the repository root (git-ignored). The
+``csrc/*.cu`` compile at first use, one ``nvcc`` process per source, all
+started together, and link into one shared library under
+``build/kernels/`` at the repository root (git-ignored). The
 file name carries a hash of the sources and flags, so an edited source
 rebuilds and an unchanged one is reused. Nothing here runs at import: the
 CPU tests import every module on a machine without ``nvcc``.
@@ -23,13 +24,13 @@ from pathlib import Path
 from typing import Dict, Optional, Sequence
 
 CSRC = Path(__file__).resolve().parent / "csrc"
-SOURCES = ("wsum.cu", "quant.cu", "q8agg.cu", "multikrum.cu")
+SOURCES = ("wsum.cu", "quant.cu", "q8agg.cu", "multikrum.cu", "wkv6.cu")
 HEADERS = ("gram.cuh",)
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
 # no --use_fast_math: it turns x / scale into an approximate division, and
 # quantize must stay bit-exact against the reference
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC")
+              "-O3", "-Xcompiler", "-fPIC")
 
 _lib: Optional[ctypes.CDLL] = None
 _lock = threading.Lock()
@@ -58,12 +59,30 @@ def build() -> Path:
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = out.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
-           *(str(CSRC / name) for name in SOURCES)]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
-                           f"{' '.join(cmd)}\n{proc.stdout}{proc.stderr}")
+    nvcc = _nvcc()
+    objs = [tmp.with_name(f"{tmp.name}.{Path(name).stem}.o")
+            for name in SOURCES]
+    compiles = [[nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(CSRC / name)]
+                for name, obj in zip(SOURCES, objs)]
+    link = [nvcc, *NVCC_FLAGS, "-shared", "-o", str(tmp), *map(str, objs)]
+
+    def check(cmd, rc, log):
+        if rc != 0:
+            raise RuntimeError(f"nvcc failed ({rc}):\n{' '.join(cmd)}\n{log}")
+
+    try:
+        procs = [subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                  stderr=subprocess.STDOUT, text=True)
+                 for cmd in compiles]
+        logs = [p.communicate()[0] for p in procs]
+        for cmd, p, log in zip(compiles, procs, logs):
+            check(cmd, p.returncode, log)
+        proc = subprocess.run(link, stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
+        check(link, proc.returncode, proc.stdout)
+    finally:
+        for obj in objs:
+            obj.unlink(missing_ok=True)
     os.replace(tmp, out)   # atomic: concurrent builders never see half a file
     return out
 

@@ -21,6 +21,7 @@ from repro_torch.kernels import multikrum as _mk
 from repro_torch.kernels import q8agg as _q8
 from repro_torch.kernels import quant as _q
 from repro_torch.kernels import ref as _ref
+from repro_torch.kernels import rwkv6 as _rwkv
 from repro_torch.kernels import wsum as _ws
 
 QTILE = _q.TILE                    # scale granularity of the int8 payload
@@ -193,9 +194,11 @@ def dequantize_batch(q, scales, n, dtype=torch.float32):
 
 
 # --------------------------------------------------------------------------- #
-# Kernels of later slices
+# WKV6
 # --------------------------------------------------------------------------- #
 
-def wkv6(*args, **kwargs):
-    raise NotImplementedError(
-        "ops.wkv6 is not ported yet (ROADMAP.md, queue 2 item 9, wkv6)")
+def wkv6(r, k, v, w, u, state):
+    """r, k, v, w: [B, T, H, hs]; u: [H, hs]; state: [B, H, hs, hs] f32 ->
+    (y [B, T, H, hs] in r.dtype, state' f32). Any T: the kernel steps token
+    by token, so the reference's chunk padding and head folding go away."""
+    return _rwkv.wkv6(r, k, v, w, u, state)

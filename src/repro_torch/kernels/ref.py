@@ -92,3 +92,18 @@ def gram_q8(q, scales, tile: int = 1024):
     """Dequantize, then X X^T and the row norms. q: [M, N] int8, scales:
     [M, N/tile] -> (G [M, M] f32, sq [M, 1] f32)."""
     return gram_and_norms(dequantize_rows(q, scales, tile))
+
+
+def wkv6_naive(r, k, v, w, u, state):
+    """Token-by-token WKV6 recurrence in float32. r, k, v, w: [B, T, H, hs];
+    u: [H, hs]; state: [B, H, hs, hs] (key x value) -> (y [B, T, H, hs] in
+    r.dtype, state' f32)."""
+    rf, kf, vf, wf = (a.to(torch.float32) for a in (r, k, v, w))
+    uf = u.to(torch.float32)[None, :, :, None]
+    S = state.to(torch.float32)
+    ys = []
+    for t in range(r.shape[1]):
+        kv = torch.einsum("bhk,bhv->bhkv", kf[:, t], vf[:, t])
+        ys.append(torch.einsum("bhkv,bhk->bhv", S + uf * kv, rf[:, t]))
+        S = S * wf[:, t, :, :, None] + kv
+    return torch.stack(ys, dim=1).to(r.dtype), S

@@ -1,0 +1,1 @@
+"""Launchers of the port (twins of ``repro.launch``): ``serve``."""

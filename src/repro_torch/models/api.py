@@ -1,17 +1,24 @@
-"""Uniform model API (twin of ``repro.models.api``), ``cnn`` family only.
+"""Uniform model API (twin of ``repro.models.api``): the ``cnn`` and the
+``ssm`` (RWKV-6) families.
 
 ``build_model(cfg)`` returns a ``Model`` whose methods are plain functions
 of (params, batch), suitable for ``torch.func.grad_and_value`` / ``vmap``:
 
-  init(generator, device)  -> params (nested dict of tensors)
-  loss(params, batch)      -> (scalar loss, metrics dict)
+  init(generator, device)            -> params (nested dict of tensors)
+  loss(params, batch)                -> (scalar loss, metrics dict)
+  prefill(params, batch)             -> (logits [B,S,V], cache)
+  init_cache(batch, seq_len, device) -> cache (nested dict of tensors)
+  decode_step(params, batch, cache)  -> (logits [B,V], cache)
 
-CNN batches: {'image' [B,32,32,3] f32, 'label' [B] int}.
+Batches:
+  LM train:  {'tokens' [B,S] int, 'targets' [B,S] int}
+  decode:    {'token' [B] int, 'pos' int}
+  CNN:       {'image' [B,32,32,3] f32, 'label' [B] int}
 """
 from __future__ import annotations
 
 from repro_torch.config import ModelConfig
-from repro_torch.models import cnn
+from repro_torch.models import cnn, rwkv6
 
 
 class Model:
@@ -25,8 +32,19 @@ class Model:
     def loss(self, params, batch):
         return self._m.loss_fn(params, batch, self.cfg)
 
+    # -- serving ------------------------------------------------------------ #
+    def init_cache(self, batch: int, seq_len: int, device):
+        return self._m.init_state(self.cfg, batch, device)
 
-_FAMILY_MOD = {"cnn": cnn}
+    def prefill(self, params, batch):
+        return self._m.prefill(params, batch["tokens"], self.cfg)
+
+    def decode_step(self, params, batch, cache):
+        return self._m.decode_step(params, batch["token"], batch["pos"],
+                                   cache, self.cfg)
+
+
+_FAMILY_MOD = {"cnn": cnn, "ssm": rwkv6}
 
 
 def build_model(cfg: ModelConfig) -> Model:

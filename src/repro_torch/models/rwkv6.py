@@ -1,0 +1,209 @@
+"""RWKV-6 "Finch" (arXiv:2404.05892): attention-free LM with data-dependent
+per-channel decay and a matrix-valued state per head. Twin of
+``repro.models.rwkv6``.
+
+Time-mix: ddlerp token-shift, r/k/v/g projections, decay w_t from a
+low-rank MLP, bonus u, and per head the WKV recurrence
+
+    y_t = (S + diag(u) k_t v_t^T)^T r_t ;  S <- diag(w_t) S + k_t v_t^T
+
+Prefill runs the recurrence through ``kernels.ops.wkv6`` (the CUDA kernel on
+the card, the token scan on the CPU); decode steps one token in plain
+PyTorch, as the reference does. Params keep the reference's layout: the
+per-layer leaves are stacked ``[L, ...]`` as ``jax.vmap`` makes them, so a
+reference init installs leaf for leaf.
+"""
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.config import ModelConfig
+from repro_torch.kernels import ops
+from repro_torch.models import layers as L
+
+LORA_DIM = 32
+DECAY_LORA = 64
+GN_EPS = 64e-5
+
+
+def init_params(generator: torch.Generator, cfg: ModelConfig, device):
+    """Random init on ``device``, drawn from ``generator`` on its own device
+    (a generator on the card keeps a 1.6 B init off the host)."""
+    d, ff, n = cfg.d_model, cfg.d_ff, cfg.n_layers
+    hs = cfg.rwkv_head_size
+    pd = L.dtype_of(cfg.param_dtype)
+
+    def dense(shape, fan_in):
+        return L.dense_init(generator, (n, *shape), fan_in, pd, device)
+
+    def uniform(shape, scale, shift, dtype):
+        u = torch.rand((n, *shape), generator=generator,
+                       device=generator.device)
+        return (u * scale + shift).to(device=device, dtype=dtype)
+
+    def ones(*shape):
+        return torch.ones(shape, dtype=pd, device=device)
+
+    layers = {
+        "ln1": ones(n, d),
+        "ln2": ones(n, d),
+        "mix_mu": uniform((5, d), 0.5, 0.0, pd),
+        "mix_w1": dense((d, 5 * LORA_DIM), d),
+        "mix_w2": dense((5, LORA_DIM, d), LORA_DIM),
+        "wr": dense((d, d), d),
+        "wk": dense((d, d), d),
+        "wv": dense((d, d), d),
+        "wg": dense((d, d), d),
+        "wo": dense((d, d), d),
+        "decay_base": uniform((d,), -6.0, -1.0, torch.float32),
+        "decay_w1": dense((d, DECAY_LORA), d),
+        "decay_w2": dense((DECAY_LORA, d), DECAY_LORA),
+        "bonus_u": uniform((d // hs, hs), 0.5, 0.0, torch.float32),
+        "gn_scale": ones(n, d),
+        "cmix_mu": uniform((2, d), 0.5, 0.0, pd),
+        "cm_wr": dense((d, d), d),
+        "cm_wk": dense((d, ff), d),
+        "cm_wv": dense((ff, d), ff),
+    }
+    return {"embed": L.init_embedding(generator, cfg, device),
+            "layers": layers, "final_norm": ones(d)}
+
+
+# --------------------------------------------------------------------------- #
+# WKV recurrence
+# --------------------------------------------------------------------------- #
+
+def wkv(r, k, v, w, u, state):
+    """r, k, v, w: [B, T, H, hs]; u: [H, hs]; state: [B, H, hs, hs] f32.
+    The CUDA kernel for a tensor on the card, the token scan on the CPU."""
+    return ops.wkv6(r, k, v, w, u, state)
+
+
+def wkv_step(r, k, v, w, u, state):
+    """Single-token recurrence. r, k, v, w: [B, H, hs]; state: [B, H, hs,
+    hs] f32."""
+    rf, kf, vf, wf = (a.to(torch.float32) for a in (r, k, v, w))
+    kv = torch.einsum("bhk,bhv->bhkv", kf, vf)
+    uf = u.to(torch.float32)[None, :, :, None]
+    y = torch.einsum("bhkv,bhk->bhv", state + uf * kv, rf)
+    state = state * wf[..., None] + kv
+    return y.to(r.dtype), state
+
+
+# --------------------------------------------------------------------------- #
+# Blocks
+# --------------------------------------------------------------------------- #
+
+def _ddlerp(p, x, x_prev):
+    """Data-dependent token-shift for the 5 projections: [B,S,D] -> 5 x
+    [B,S,D]."""
+    delta = x_prev - x
+    base = x + delta * p["mix_mu"][0].to(x.dtype)   # coarse mix for the lora
+    lo = torch.tanh(base @ p["mix_w1"].to(x.dtype))
+    lo = lo.reshape(*x.shape[:-1], 5, LORA_DIM)
+    adj = torch.einsum("bsnr,nrd->bsnd", lo, p["mix_w2"].to(x.dtype))
+    return [x + delta * (p["mix_mu"][i].to(x.dtype) + adj[..., i, :])
+            for i in range(5)]
+
+
+def time_mix(p, x, cfg: ModelConfig, x_prev, state):
+    """x: [B,S,D]; x_prev: [B,1,D] last token of the previous segment;
+    state: [B,H,hs,hs]. Returns (out, new_x_prev, new_state)."""
+    B, S, D = x.shape
+    hs = cfg.rwkv_head_size
+    H = D // hs
+    shifted = torch.cat([x_prev, x[:, :-1]], dim=1)
+    xr, xk, xv, xw, xg = _ddlerp(p, x, shifted)
+    r = xr @ p["wr"].to(x.dtype)
+    k = xk @ p["wk"].to(x.dtype)
+    v = xv @ p["wv"].to(x.dtype)
+    g = F.silu(xg @ p["wg"].to(x.dtype))
+    dw = (torch.tanh(xw) @ p["decay_w1"].to(x.dtype)) @ \
+        p["decay_w2"].to(x.dtype)
+    w = torch.exp(-torch.exp(p["decay_base"].to(torch.float32) +
+                             dw.to(torch.float32)))   # in (0, 1), [B,S,D]
+    rh, kh, vh, wh = (a.reshape(B, S, H, hs) for a in (r, k, v, w))
+    if S == 1:
+        y, state = wkv_step(rh[:, 0], kh[:, 0], vh[:, 0], wh[:, 0],
+                            p["bonus_u"], state)
+        y = y[:, None]
+    else:
+        y, state = wkv(rh, kh, vh, wh, p["bonus_u"], state)
+    # group-norm over heads: population variance, as jnp.var
+    yf = y.to(torch.float32).reshape(B, S, H, hs)
+    mu = torch.mean(yf, dim=-1, keepdim=True)
+    var = torch.var(yf, dim=-1, keepdim=True, correction=0)
+    yf = (yf - mu) * torch.rsqrt(var + GN_EPS)
+    y = (yf.reshape(B, S, D) * p["gn_scale"].to(torch.float32)).to(x.dtype)
+    out = (y * g) @ p["wo"].to(x.dtype)
+    return out, x[:, -1:], state
+
+
+def channel_mix(p, x, x_prev):
+    shifted = torch.cat([x_prev, x[:, :-1]], dim=1)
+    delta = shifted - x
+    xk = x + delta * p["cmix_mu"][0].to(x.dtype)
+    xr = x + delta * p["cmix_mu"][1].to(x.dtype)
+    r = torch.sigmoid(xr @ p["cm_wr"].to(x.dtype))
+    k = torch.square(F.relu(xk @ p["cm_wk"].to(x.dtype)))
+    v = k @ p["cm_wv"].to(x.dtype)
+    return r * v, x[:, -1:]
+
+
+def _layer(cfg, x, lp, st):
+    """st: dict(tm_x [B,1,D], cm_x [B,1,D], wkv [B,H,hs,hs])."""
+    h, tm_x, wkv_s = time_mix(lp, L.rms_norm(x, lp["ln1"], cfg.norm_eps), cfg,
+                              st["tm_x"], st["wkv"])
+    x = x + h
+    h, cm_x = channel_mix(lp, L.rms_norm(x, lp["ln2"], cfg.norm_eps),
+                          st["cm_x"])
+    x = x + h
+    return x, {"tm_x": tm_x, "cm_x": cm_x, "wkv": wkv_s}
+
+
+def init_state(cfg: ModelConfig, batch: int, device):
+    d = cfg.d_model
+    hs = cfg.rwkv_head_size
+    dt = L.dtype_of(cfg.compute_dtype)
+    z = lambda *s: torch.zeros(s, dtype=dt, device=device)
+    return {"tm_x": z(cfg.n_layers, batch, 1, d),
+            "cm_x": z(cfg.n_layers, batch, 1, d),
+            "wkv": torch.zeros((cfg.n_layers, batch, d // hs, hs, hs),
+                               dtype=torch.float32, device=device)}
+
+
+def forward(params, tokens, cfg: ModelConfig, state=None):
+    """tokens [B, S] -> (final-normed x [B, S, D], new state); a Python loop
+    over the stacked layers."""
+    B, _ = tokens.shape
+    x = L.embed(params["embed"], tokens, cfg)
+    if state is None:
+        state = init_state(cfg, B, x.device)
+    new = {name: [] for name in state}
+    for i in range(cfg.n_layers):
+        lp = {name: leaf[i] for name, leaf in params["layers"].items()}
+        x, st = _layer(cfg, x, lp, {name: s[i] for name, s in state.items()})
+        for name in new:
+            new[name].append(st[name])
+    x = L.rms_norm(x, params["final_norm"], cfg.norm_eps)
+    return x, {name: torch.stack(s) for name, s in new.items()}
+
+
+def loss_fn(params, batch, cfg: ModelConfig):
+    x, _ = forward(params, batch["tokens"], cfg)
+    logits = L.logits_out(params["embed"], x, cfg)
+    ce = L.cross_entropy(logits, batch["targets"], cfg.vocab_size,
+                         batch.get("mask"))
+    return ce, {"loss": ce, "ce": ce, "aux": torch.zeros((), device=ce.device)}
+
+
+def prefill(params, tokens, cfg: ModelConfig):
+    x, state = forward(params, tokens, cfg)
+    return L.logits_out(params["embed"], x, cfg), state
+
+
+def decode_step(params, token, pos, state, cfg: ModelConfig):
+    del pos  # recurrent: position-free
+    x, new_state = forward(params, token[:, None], cfg, state)
+    return L.logits_out(params["embed"], x, cfg)[:, 0], new_state

@@ -10,7 +10,8 @@ import numpy as np
 import pytest
 import torch
 
-from repro_torch.kernels import _build, multikrum, ops, q8agg, quant, ref, wsum
+from repro_torch.kernels import (_build, multikrum, ops, q8agg, quant, ref,
+                                 rwkv6, wsum)
 
 
 def _rng_tensor(shape, seed, scale=1.0):
@@ -26,6 +27,18 @@ def _q8_inputs(m, n, seed):
                          .astype(np.float32))
     w = torch.from_numpy(rng.uniform(0.1, 1.0, m).astype(np.float32))
     return q, s, w
+
+
+def _wkv6_inputs(B, T, H, hs, seed, dtype=torch.float32):
+    """r, k, v (in ``dtype``), w as the model draws it (exp(-exp(decay_base
+    + dw)), f32), u and a random f32 state."""
+    rng = np.random.default_rng(seed)
+    n = lambda *s: rng.standard_normal(s).astype(np.float32)
+    r, k, v = (torch.from_numpy(n(B, T, H, hs)).to(dtype) for _ in range(3))
+    base = rng.uniform(-7.0, -1.0, (H, hs)).astype(np.float32)
+    w = torch.from_numpy(np.exp(-np.exp(base + 0.5 * n(B, T, H, hs))))
+    u = torch.from_numpy(rng.uniform(0.0, 0.5, (H, hs)).astype(np.float32))
+    return r, k, v, w, u, torch.from_numpy(n(B, H, hs, hs))
 
 
 # --------------------------------------------------------------------------- #
@@ -52,9 +65,13 @@ def test_cpu_tensors_take_the_plain_versions_and_launch_nothing():
     xg = _rng_tensor((3, 2048), 11)
     for a, b in zip(multikrum.gram_and_norms(xg), ref.gram_and_norms(xg)):
         assert torch.equal(a, b)
+    args = _wkv6_inputs(2, 5, 2, 16, 12)
+    for a, b in zip(rwkv6.wkv6(*args), ref.wkv6_naive(*args)):
+        assert torch.equal(a, b)
     assert _build.launch_counts() == before
     assert set(before) == {"weighted_sum", "quantize", "dequantize", "wsum_q8",
-                           "add_q8_delta", "gram_q8", "gram_and_norms"}
+                           "add_q8_delta", "gram_q8", "gram_and_norms",
+                           "wkv6"}
 
 
 @pytest.mark.parametrize("call", [
@@ -66,8 +83,10 @@ def test_cpu_tensors_take_the_plain_versions_and_launch_nothing():
                                  t((128,))),
     lambda t: q8agg.gram_q8(t((2, 4096), torch.int8), t((2, 4))),
     lambda t: multikrum.gram_and_norms(t((2, 2048))),
+    lambda t: rwkv6.wkv6(*(t(s) for s in ((1, 4, 2, 16),) * 4),
+                         t((2, 16)), t((1, 2, 16, 16))),
 ], ids=["weighted_sum", "quantize", "dequantize", "wsum_q8", "add_q8_delta",
-        "gram_q8", "gram_and_norms"])
+        "gram_q8", "gram_and_norms", "wkv6"])
 def test_devices_without_a_kernel_raise(call):
     meta = lambda shape, dtype=torch.float32: torch.empty(shape, dtype=dtype,
                                                           device="meta")
@@ -269,3 +288,55 @@ def test_gpu_wrappers_refuse_misaligned_and_malformed_operands():
     with pytest.raises(ValueError):
         wsum.weighted_sum(torch.zeros((2, 1000), device=dev),
                           torch.ones(2, device=dev))
+
+
+def _assert_wkv6(got, want, rel=1e-5):
+    """|dy| <= rel*max|y| (plus one ulp of |y| for a bf16 y) and |dS| <=
+    rel*max|S|: float32 sums over the key index in another order; the
+    token scan itself sits within about 1e-6 of float64 at T <= 4096."""
+    (y, s), (y0, s0) = got, want
+    assert y.dtype == y0.dtype and s.dtype == torch.float32
+    ulp = 2.0 ** -7 if y.dtype == torch.bfloat16 else 0.0
+    y, y0 = y.float(), y0.float()
+    assert ((y - y0).abs() <= rel * y0.abs().max() + ulp * y0.abs()).all()
+    assert float((s - s0).abs().max()) <= rel * float(s0.abs().max())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("hs", [16, 64])
+@pytest.mark.parametrize("T", [1, 33, 1000])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_gpu_wkv6(hs, T, dtype):
+    dev = _cuda()
+    args = [a.to(dev) for a in _wkv6_inputs(2, T, 64 // hs * 2, hs, T + hs,
+                                             dtype)]
+    got = _launched("wkv6", lambda: rwkv6.wkv6(*args))
+    _assert_wkv6(got, ref.wkv6_naive(*args))
+    again = rwkv6.wkv6(*args)             # no atomics: the same bits again
+    assert torch.equal(again[0], got[0]) and torch.equal(again[1], got[1])
+
+
+@pytest.mark.gpu
+def test_gpu_wkv6_reads_strided_inputs():
+    """[B, H, T, hs] storage read through a [B, T, H, hs] view, and w in
+    another layout than r, k, v: no copy, the same numbers."""
+    dev = _cuda()
+    r, k, v, w, u, s0 = (a.to(dev) for a in _wkv6_inputs(2, 40, 4, 64, 5))
+    view = lambda a: a.transpose(1, 2).contiguous().transpose(1, 2)
+    rs, ks, vs = view(r), view(k), view(v)
+    assert rs.stride() != r.stride()
+    got = _launched("wkv6", lambda: rwkv6.wkv6(rs, ks, vs, w, u, s0))
+    _assert_wkv6(got, ref.wkv6_naive(r, k, v, w, u, s0))
+
+
+@pytest.mark.gpu
+def test_gpu_wkv6_refuses_other_head_sizes():
+    dev = _cuda()
+    z = torch.zeros((1, 4, 2, 48), device=dev)
+    with pytest.raises(ValueError, match="head size 48"):
+        rwkv6.wkv6(z, z, z, z, torch.zeros((2, 48), device=dev),
+                   torch.zeros((1, 2, 48, 48), device=dev))
+    z = torch.zeros((1, 4, 2, 64), device=dev)
+    with pytest.raises(ValueError, match="share a device"):
+        rwkv6.wkv6(z, z, z, z, torch.zeros((2, 64), device=dev),
+                   torch.zeros((1, 2, 64, 64)))             # state on the CPU

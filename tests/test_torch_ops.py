@@ -115,9 +115,3 @@ def test_flatten_follows_jax_leaf_order():
     np.testing.assert_array_equal(batch.numpy(), np.asarray(jb))
     stacked = tops.unflatten_batch(batch, spec)
     assert stacked["conv1"]["w"].shape == (2, 5, 5, 3, 6)
-
-
-@pytest.mark.parametrize("name", ["wkv6"])
-def test_later_slice_kernels_raise(name):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        getattr(tops, name)(torch.zeros(2, 4))
