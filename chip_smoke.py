@@ -8,11 +8,17 @@ Phases, in order; any failure exits non-zero and prints no result:
   1. resolve the card and print its name and power limit (nvidia-smi);
   2. build the CUDA kernels from ``src/repro_torch/kernels/csrc``;
   3. check each kernel against its plain version on the card, at the main
-     path's shapes (paper CNN: N = 62,006 padded, M or K = 2, M = 3 for the
-     MultiKRUM Gram; ``wkv6``: the serving prefill, B 4, T 64, H 32, hs 64)
-     and at a large shape (N = 2^28; M = 4 for f32 sums, 8 for int8 and the
-     Gram, so M*N >= 2^31; ``wkv6``: B 8, T 4096), and time both (CUDA
-     events, warm, averaged) beside the least time the card could take;
+     path's shapes (paper CNN: N = 62,006, M or K = 2, M = 3 for the
+     MultiKRUM Gram; the int8 kernels at N padded to 131,072; ``wkv6``: the
+     serving prefill, B 4, T 64, H 32, hs 64) and at a large shape (N =
+     2^28; M = 4 for f32 sums, 8 for int8 and the Gram, so M*N >= 2^31;
+     ``wkv6``: B 8, T 4096), and time both (CUDA events, warm, averaged)
+     beside the least time the card could take and, where one PyTorch call
+     computes the same function, that call; ``weighted_sum`` and
+     ``gram_and_norms`` also at the padded widths of earlier rows (65,536
+     and 63,488) and the Gram on the strided [:, :62,006] view of a
+     [3, 131,072] buffer, each main-shape row of the two with its device
+     time a call from ``torch.profiler``;
   4. run the main paths on the card, each with the launch counts set to 0
      just before it: a 2-round Sync UnifyFL experiment of the paper CNN
      with int8 compression and accuracy scoring, a 1-round uncompressed
@@ -56,6 +62,7 @@ BF16_ULP = 2.0 ** -7           # one bf16 ulp, relative
 SERVE_ARCH = "rwkv6-1.6b"
 MAIN_N = 62_006                # paper-cnn params (configs/paper_cnn.py)
 LARGE_N = 1 << 28
+WSUM_PAD, GRAM_PAD = 4096, 2048   # the padded widths of the earlier rows
 ACC_TOL = 0.05                 # global accuracy, card vs CPU (see phase 4)
 
 
@@ -76,6 +83,36 @@ def cuda_ms(fn, iters: int) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def device_time(fn, calls: int = 50) -> dict:
+    """Device time a launch and the kernels ``fn`` launches, from
+    ``torch.profiler`` over ``calls`` warm calls (CUDA events at these sizes
+    time the host's launch rate instead). Per launch, not per call: the
+    profiler now and then drops a share of the events, or all of them (then
+    it tries again, twice)."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+        kern = [e for e in prof.key_averages()
+                if e.device_type == torch.autograd.DeviceType.CUDA]
+        launches = sum(e.count for e in kern)
+        if launches:
+            break
+    else:
+        fail("the profiler saw no kernel in three tries")
+    return {"device_us_per_launch": sum(e.self_device_time_total
+                                        for e in kern) / launches,
+            "launches_seen_per_call": launches / calls,
+            "device_kernels": sorted(
+                e.key.split("<")[0].split("::")[-1].split("(")[0]
+                for e in kern)}
 
 
 def bound(nbytes: float, flops: float = 0.0, peak_flops: float = F32_FLOPS):
@@ -104,35 +141,56 @@ def check_kernels(shape: str, gen, iters: int):
     rows = []
 
     def row(name, max_err, ms, plain_ms, nbytes, flops=0.0, library_ms=None,
-            check="bit-exact", peak_flops=F32_FLOPS, **dims):
+            check="bit-exact", peak_flops=F32_FLOPS, path=True, **dims):
+        """``path``: the operand the main path hands this kernel (the row
+        of the kernels line)."""
         b_ms, b_by = bound(nbytes, flops, peak_flops)
-        rows.append({"name": name, "shape": shape, **dims,
+        rows.append({"name": name, "shape": shape, "path": path, **dims,
                      "max_abs_err": max_err, "check": check, "kernel_ms": ms,
                      "plain_ms": plain_ms, "library_ms": library_ms,
                      "bound_ms": b_ms, "bound_by": b_by,
                      "device": torch.cuda.get_device_name(0)})
         print(json.dumps(rows[-1]), flush=True)
 
-    # weighted_sum: intra-silo FedAvg of M clients (f32), N padded to 4096
+    # weighted_sum: intra-silo FedAvg of M clients (f32): the unpadded
+    # contiguous stack the main path hands it (8-byte-aligned rows), and at
+    # the main shape also the 4096-padded width of earlier rows
     M = 4 if large else 2
-    N = LARGE_N if large else MAIN_N + (-MAIN_N) % wsum.TILE_N
-    x = torch.randn((M, N), generator=gen, device="cuda")
     w = torch.rand((M,), generator=gen, device="cuda")
     w = w / w.sum()
-    got, want = wsum.weighted_sum(x, w), ref.weighted_sum(x, w)
-    torch.cuda.synchronize()
-    err = float((got - want).abs().max())
-    # an M-term f32 sum in another order: within M ulps of sum |w x|
-    scale = float((w.abs()[:, None] * x.abs()).sum(0).max())
-    if not err <= M * 2.0 ** -23 * scale:
-        fail(f"weighted_sum {shape}: max_abs_err {err} (scale {scale})")
-    row("weighted_sum", err, cuda_ms(lambda: wsum.weighted_sum(x, w), iters),
-        cuda_ms(lambda: ref.weighted_sum(x, w), iters),
-        (M + 1) * N * 4, 2.0 * M * N,
-        library_ms=cuda_ms(lambda: torch.matmul(w, x), iters),
-        check=f"abs err <= M*2^-23*max sum|w x| = {M * 2.0 ** -23 * scale:.3e}",
-        M=M, N=N)
-    del x
+    for N, path in ([(LARGE_N, True)] if large else
+                    [(MAIN_N + (-MAIN_N) % WSUM_PAD, False), (MAIN_N, True)]):
+        x = torch.randn((M, N), generator=gen, device="cuda")
+        got, want = wsum.weighted_sum(x, w), ref.weighted_sum(x, w)
+        torch.cuda.synchronize()
+        err = float((got - want).abs().max())
+        # an M-term f32 sum in another order: within M ulps of sum |w x|
+        scale = float((w.abs()[:, None] * x.abs()).sum(0).max())
+        if not err <= M * 2.0 ** -23 * scale:
+            fail(f"weighted_sum {shape} N={N}: max_abs_err {err} "
+                 f"(scale {scale})")
+        # the kernel's own order, bit for bit: fmaf over m = 0..M-1 from 0
+        if not torch.equal(got, ref.weighted_sum_ordered(x, w)):
+            fail(f"weighted_sum {shape} N={N}: not the ordered FMA chain")
+        w_host = w.cpu()
+        if not torch.equal(wsum.weighted_sum(x, w_host), got):
+            fail(f"weighted_sum {shape} N={N}: host weights give other bits")
+        extra = {} if large else {
+            "kernel_ms_host_w": cuda_ms(lambda: wsum.weighted_sum(x, w_host),
+                                        iters),
+            "device_us_per_launch_host_w": device_time(
+                lambda: wsum.weighted_sum(x, w_host))["device_us_per_launch"],
+            **device_time(lambda: wsum.weighted_sum(x, w))}
+        row("weighted_sum", err,
+            cuda_ms(lambda: wsum.weighted_sum(x, w), iters),
+            cuda_ms(lambda: ref.weighted_sum(x, w), iters),
+            (M + 1) * N * 4, 2.0 * M * N,
+            library_ms=cuda_ms(lambda: torch.matmul(w, x), iters),
+            check=f"abs err <= M*2^-23*max sum|w x| = "
+                  f"{M * 2.0 ** -23 * scale:.3e}; bit-exact with the ordered "
+                  "FMA chain; host w same bits",
+            path=path, M=M, N=N, layout="contiguous", **extra)
+        del x, got, want
 
     # quantize: the int8 wire encode, N padded to 131072
     N = LARGE_N if large else MAIN_N + (-MAIN_N) % ops.QUANT_BLOCK
@@ -159,14 +217,20 @@ def check_kernels(shape: str, gen, iters: int):
     del got, want
     row("dequantize", 0.0, cuda_ms(lambda: quant.dequantize(qk, sk), iters),
         cuda_ms(lambda: ref.dequantize_rows(qk, sk), iters),
-        K * N + K * N // 1024 * 4 + K * N * 4, K=K, N=N)
+        K * N + K * N // 1024 * 4 + K * N * 4,
+        library_ms=cuda_ms(lambda: torch.mul(qk.view(K, -1, 1024),
+                                             sk.unsqueeze(-1)), iters),
+        K=K, N=N)
     # the K=1 entry point (wire.reconstruct, quant.py:79) runs the same kernel
     q1, s1 = qk[0], sk[0]
     if not torch.equal(quant.dequantize(q1, s1), ref.dequantize_int8(q1, s1)):
         fail(f"dequantize K=1 {shape}: differs from the plain version")
     row("dequantize_k1", 0.0, cuda_ms(lambda: quant.dequantize(q1, s1), iters),
         cuda_ms(lambda: ref.dequantize_int8(q1, s1), iters),
-        N + N // 1024 * 4 + N * 4, K=1, N=N)
+        N + N // 1024 * 4 + N * 4,
+        library_ms=cuda_ms(lambda: torch.mul(q1.view(-1, 1024),
+                                             s1.unsqueeze(-1)), iters),
+        K=1, N=N)
 
     # wsum_q8: the fused cross-silo merge of M int8 peers
     M = K
@@ -202,7 +266,10 @@ def check_kernels(shape: str, gen, iters: int):
     row("add_q8_delta", 0.0,
         cuda_ms(lambda: q8agg.add_q8_delta(base, qd, sd), iters),
         cuda_ms(lambda: ref.add_q8_delta(base, qd, sd), iters),
-        9 * N + N // 1024 * 4, 2.0 * N, N=N)
+        9 * N + N // 1024 * 4, 2.0 * N,
+        library_ms=cuda_ms(lambda: torch.addcmul(
+            base.view(-1, 1024), qd.view(-1, 1024), sd.unsqueeze(-1)), iters),
+        N=N)
     del base, qd, sd
     torch.cuda.empty_cache()
 
@@ -224,21 +291,44 @@ def check_kernels(shape: str, gen, iters: int):
     del qg, sg
     torch.cuda.empty_cache()
 
-    # gram_and_norms: MultiKRUM off M f32 models, N padded to 2048
-    N = LARGE_N if large else MAIN_N + (-MAIN_N) % multikrum.TILE_N
-    xg = torch.randn((M, N), generator=gen, device="cuda")
-    err = check_gram("gram_and_norms", shape, multikrum.gram_and_norms(xg),
-                     ref.gram_and_norms(xg), xg)
-    row("gram_and_norms", err,
-        cuda_ms(lambda: multikrum.gram_and_norms(xg), iters),
-        cuda_ms(lambda: ref.gram_and_norms(xg), iters),
-        4 * M * N, 2.0 * M * M * N,
-        library_ms=cuda_ms(lambda: torch.matmul(xg, xg.T), iters),
-        check="|G - G_plain| <= sqrt(N) 2^-24 |x_i| |x_j|, sq likewise; "
-        "a quarter of that from float64",
-        M=M, N=N)
-    del xg
-    torch.cuda.empty_cache()
+    # gram_and_norms: MultiKRUM off M f32 models: the unpadded contiguous
+    # stack the main path hands it, and at the main shape also the strided
+    # [:, :N] view of a 131,072-padded dequantize and the 2048-padded width
+    # of earlier rows
+    layouts = ([(LARGE_N, "contiguous", True)] if large else
+               [(MAIN_N + (-MAIN_N) % GRAM_PAD, "contiguous", False),
+                (MAIN_N, "contiguous", True), (MAIN_N, "strided", False)])
+    for N, layout, path in layouts:
+        width = ops.QUANT_BLOCK if layout == "strided" else N
+        xg = torch.randn((M, width), generator=gen, device="cuda")[:, :N]
+        got = multikrum.gram_and_norms(xg)
+        err = check_gram("gram_and_norms", f"{shape} N={N} {layout}", got,
+                         ref.gram_and_norms(xg), xg)
+        again = multikrum.gram_and_norms(xg)
+        if not (torch.equal(again[0], got[0])
+                and torch.equal(again[1], got[1])):
+            fail(f"gram_and_norms {shape} N={N} {layout}: a rerun gives "
+                 "other bits")
+        extra = {} if large else device_time(
+            lambda: multikrum.gram_and_norms(xg))
+        # one launch a call: no other kernel in the profile, and no more
+        # launches than calls (the wrapper's own count says one a call)
+        if extra and (extra["launches_seen_per_call"] > 1 or
+                      any(not k.startswith("gram_and_norms_kernel")
+                          for k in extra["device_kernels"])):
+            fail(f"gram_and_norms {shape}: {extra}, want one "
+                 "gram_and_norms_kernel a call")
+        row("gram_and_norms", err,
+            cuda_ms(lambda: multikrum.gram_and_norms(xg), iters),
+            cuda_ms(lambda: ref.gram_and_norms(xg), iters),
+            4 * M * N, 2.0 * M * M * N,
+            library_ms=cuda_ms(lambda: torch.matmul(xg, xg.T), iters),
+            check="|G - G_plain| <= sqrt(N) 2^-24 |x_i| |x_j|, sq likewise; "
+            "a quarter of that from float64; G symmetric, sq its diagonal, "
+            "reruns the same bits",
+            path=path, M=M, N=N, layout=layout, **extra)
+        del xg, got, again
+        torch.cuda.empty_cache()
     return rows
 
 
@@ -280,7 +370,8 @@ def check_wkv6(shape: str, gen, iters: int) -> dict:
     # S <- diag(w) S + k v^T (3 hs^2)
     n = B * T * H * hs
     b_ms, b_by = bound(12 * n + 2 * B * H * hs * hs * 4, (5.0 * hs + 5) * n)
-    row = {"name": "wkv6", "shape": shape, "B": B, "T": T, "H": H, "hs": hs,
+    row = {"name": "wkv6", "shape": shape, "path": True, "B": B, "T": T,
+           "H": H, "hs": hs,
            "max_abs_err": max(float(dy.max()), float(ds.max())),
            "max_abs_err_y": float(dy.max()), "max_abs_err_state":
            float(ds.max()), "max_abs_y": ymax, "max_abs_state": smax,
@@ -293,6 +384,29 @@ def check_wkv6(shape: str, gen, iters: int) -> dict:
            "device": torch.cuda.get_device_name(0)}
     print(json.dumps(row), flush=True)
     return row
+
+
+def host_path(calls: int = 20000) -> dict:
+    """Host microseconds a call to get the current stream's raw handle: a
+    ``torch.cuda.Stream`` object built each call against the private raw
+    getter that ``_build.stream_of`` reads."""
+    from repro_torch.kernels import _build
+    x = torch.zeros(1, device="cuda")
+
+    def per_call(fn):
+        t0 = time.perf_counter()
+        for _ in range(calls):
+            fn()
+        return (time.perf_counter() - t0) / calls * 1e6
+
+    line = {"phase": "host-path",
+            "stream_object_us": per_call(
+                lambda: torch.cuda.current_stream(x.device).cuda_stream),
+            "raw_stream_us": per_call(lambda: _build.stream_of(x))}
+    if _build.stream_of(x) != torch.cuda.current_stream(x.device).cuda_stream:
+        fail("stream_of differs from the current stream")
+    print(json.dumps(line), flush=True)
+    return line
 
 
 def check_gram(name: str, shape: str, got, want, x) -> float:
@@ -383,11 +497,16 @@ def profile_rounds(compression: str, scorer: str, rounds: int) -> dict:
     ported = {}
     for name in ("weighted_sum_kernel", "quantize_kernel",
                  "dequantize_kernel", "wsum_q8_kernel", "add_q8_delta_kernel",
-                 "gram_q8_kernel", "gram_f32_kernel", "reduce_partials"):
+                 "gram_q8_kernel", "gram_and_norms_kernel", "reduce_partials"):
         hits = [e for e in kern if f"::{name}" in e.key]  # not de-quantize
         ported[name] = {"count": sum(e.count for e in hits),
                         "ms": sum(e.self_device_time_total for e in hits)
                         / 1e3}
+    # gram_and_norms is one launch: the second pass is gram_q8's alone
+    if ported["reduce_partials"]["count"] != ported["gram_q8_kernel"]["count"]:
+        fail(f"profile {compression}-{scorer}: {ported['reduce_partials']} "
+             f"reduce_partials launches for {ported['gram_q8_kernel']} "
+             "gram_q8 launches")
     return {"phase": f"profile-{compression}-{scorer}", "rounds": rounds,
             "wall_s": wall,
             "device_busy_s": busy_us / 1e6,
@@ -606,6 +725,7 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     gen = torch.Generator(device="cuda").manual_seed(0)
+    host_path()
     main_rows = check_kernels("main", gen, iters=200)
     check_kernels("large", gen, iters=5)
     main_rows.append(check_wkv6("main", gen, iters=200))
@@ -719,7 +839,9 @@ def main() -> int:
     path_launches["wkv6"] = sum(r["wkv6_launches"] for r in serving)
     kernels = []
     for r in main_rows:
-        if r["name"] not in meta:      # dequantize_k1: same kernel, K = 1
+        # dequantize_k1: the same kernel, K = 1; other rows: not the
+        # operand the main path hands the kernel
+        if r["name"] not in meta or not r["path"]:
             continue
         src, replaces = meta[r["name"]]
         kernels.append({"name": r["name"], "route": "cuda", "source": src,

@@ -25,9 +25,10 @@ def _normalized(weights: Sequence[float]) -> np.ndarray:
 
 
 def fedavg_params(params_list: Sequence, weights: Sequence[float]):
-    """Sample-count-weighted average of parameter dicts (kernel-backed)."""
+    """Sample-count-weighted average of parameter dicts (kernel-backed).
+    The weights stay on the host: the kernel takes up to 64 by value."""
     vecs, spec = ops.flatten_batch(params_list)
-    w = torch.from_numpy(_normalized(weights)).to(vecs.device)
+    w = torch.from_numpy(_normalized(weights))
     return ops.unflatten_pytree(ops.weighted_sum(vecs, w), spec)
 
 

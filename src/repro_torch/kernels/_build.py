@@ -137,16 +137,21 @@ def launch_counts() -> Dict[str, int]:
     return {name: k.launches for name, k in KERNELS.items()}
 
 
-def stream_of(t) -> ctypes.c_void_p:
-    """The current CUDA stream of ``t``'s device, as a C pointer."""
+def stream_of(t) -> int:
+    """The current CUDA stream of ``t``'s device, as a raw pointer.
+
+    Reads the raw handle (``torch._C._cuda_getCurrentRawStream``, private)
+    instead of building a ``torch.cuda.Stream`` object each call."""
     import torch
-    return ctypes.c_void_p(torch.cuda.current_stream(t.device).cuda_stream)
+    return torch._C._cuda_getCurrentRawStream(t.device.index)
 
 
-def ptr(t) -> ctypes.c_void_p:
-    """Device pointer of a tensor the kernels read as 16-byte vectors."""
+def ptr(t) -> int:
+    """Device pointer of a tensor the kernels read as 16-byte vectors.
+    (``weighted_sum`` and ``gram_and_norms`` pick their width from the
+    pointer and row stride, so any tensor's own alignment does for them.)"""
     p = t.data_ptr()
     if p % 16:
         raise ValueError(f"kernel operand at {p:#x} is not 16-byte aligned "
                          "(pass a fresh or padded tensor, not an offset view)")
-    return ctypes.c_void_p(p)
+    return p

@@ -1,11 +1,15 @@
 // Shared by the two MultiKRUM Gram kernels, gram_q8 (q8agg.cu) and
-// gram_and_norms (multikrum.cu): the split of the M(M+1)/2 row pairs over a
-// block's threads, and the second pass that sums the per-block partials.
+// gram_and_norms (multikrum.cu): the row-pair index, the lane butterfly and
+// the model cap serve both; the split of the M(M+1)/2 row pairs over a
+// block's threads, the shared-memory opt-in and the second pass that sums
+// the per-block partials are gram_q8's alone (gram_and_norms sums them in
+// its own launch, behind a ticket).
 //
 // Blocks run unordered, so a Gram matrix over N split across blocks needs a
-// reduction across blocks. It is a second, fixed-order pass over [B, M, M]
-// partials, never a float atomicAdd: MultiKRUM scores decide which models a
-// silo merges, and the card must give the same scores run after run.
+// reduction across blocks. gram_q8 makes it a second, fixed-order pass over
+// [B, M, M] partials, never a float atomicAdd: MultiKRUM scores decide which
+// models a silo merges, and the card must give the same scores run after
+// run.
 #pragma once
 
 #include <cuda_runtime.h>

@@ -2,38 +2,67 @@
 
 Replaces the Pallas kernel ``repro/kernels/multikrum.py:40``
 (``gram_and_norms``); ``ops.pairwise_dists`` forms the distances from it.
-CUDA source: ``csrc/multikrum.cu`` (and ``csrc/gram.cuh``). Bound on the
-card: memory, ``4*M*N`` bytes for ``2*M^2*N`` flops at M <= 64. N splits
-across blocks by whole ``TILE_N`` tiles, each block keeps its row pairs'
-sums in registers over an ``[M, 256]`` slab in shared memory, and a second
-pass sums the blocks' partials in a fixed order.
+CUDA source: ``csrc/multikrum.cu``. Bound on the card: memory, ``4*M*N``
+bytes for ``2*M^2*N`` flops at M <= 64. One launch: blocks stream column
+units through a ring of ``cp.async`` slabs, sum row-group pairs in
+registers, write their partials to scratch, and the last block to take a
+ticket sums them in a fixed order.
+
+``x`` is any ``[M, N]`` float32 with unit column stride and row stride >= N
+(the paper CNN's unpadded stack, or the strided view of a padded dequantize).
+The scratch and the ticket are kept per device and used by one stream at a
+time, which is how the port launches.
 """
 from __future__ import annotations
 
 import ctypes
+from typing import Dict, Tuple
 
 import torch
 
 from repro_torch.kernels import _build, ref
-from repro_torch.kernels.q8agg import GRAM_MAX_M, launch_gram
 
-TILE_N = 2048    # the padding contract of ops.pairwise_dists
+MAX_M = 64            # row pairs a block (csrc/multikrum.cu)
+PART_BLOCKS = 1024    # partials the scratch holds: above any grid it launches
 
 _KERNEL = _build.register(
     "gram_and_norms", "repro_gram_and_norms",
-    [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-     ctypes.c_int, ctypes.c_int64, ctypes.c_int, ctypes.c_void_p])
+    [ctypes.c_void_p, ctypes.c_int64, ctypes.c_int, ctypes.c_int64,
+     ctypes.c_void_p, ctypes.c_int64, ctypes.c_void_p, ctypes.c_void_p,
+     ctypes.c_void_p])
+
+# device index -> (ticket int32 [1], zeroed once; partials f32, grown)
+_SCRATCH: Dict[int, Tuple[torch.Tensor, torch.Tensor]] = {}
+
+
+def _scratch(x, pairs: int):
+    held = _SCRATCH.get(x.get_device())
+    if held is None or held[1].numel() < PART_BLOCKS * pairs:
+        ticket = held[0] if held is not None else \
+            torch.zeros(1, dtype=torch.int32, device=x.device)
+        held = _SCRATCH[x.get_device()] = (ticket, torch.empty(
+            PART_BLOCKS * pairs, dtype=torch.float32, device=x.device))
+    return held
 
 
 def gram_and_norms(x):
-    """x: [M, N] f32 (N % TILE_N == 0, M <= 64) -> (G [M, M], sq [M, 1])."""
-    if x.device.type == "cpu":
-        return ref.gram_and_norms(x)
-    if x.device.type != "cuda":
+    """x: [M, N] f32, row-strided, M <= 64 -> (G [M, M], sq [M, 1]), two
+    views of one allocation. The checks are written for a thin host path."""
+    if not x.is_cuda:
+        if x.device.type == "cpu":
+            return ref.gram_and_norms(x)
         raise ValueError(f"gram_and_norms: no kernel for device {x.device}")
     M, N = x.shape
-    if x.dtype != torch.float32 or N % TILE_N or not 1 <= M <= GRAM_MAX_M:
-        raise ValueError(f"gram_and_norms: need f32 [M, N], N % {TILE_N} == 0"
-                         f", 1 <= M <= {GRAM_MAX_M}; got {x.dtype} "
-                         f"{tuple(x.shape)}")
-    return launch_gram(_KERNEL, x.contiguous(), N // TILE_N, M, N)
+    s0, s1 = x.stride()
+    ld = s0 if M > 1 else N
+    if not (x.dtype is torch.float32 and 1 <= M <= MAX_M and N >= 1
+            and (s1 == 1 or N == 1) and ld >= N):
+        raise ValueError(f"gram_and_norms: need f32 [M, N], 1 <= M <= {MAX_M}"
+                         ", unit column stride, row stride >= N; got "
+                         f"{x.dtype} {tuple(x.shape)} strides {x.stride()}")
+    ticket, part = _scratch(x, M * (M + 1) // 2)
+    out = torch.empty(M * M + M, dtype=torch.float32, device=x.device)
+    _KERNEL(x.data_ptr(), ld, M, N, part.data_ptr(), part.numel(),
+            ticket.data_ptr(), out.data_ptr(), _build.stream_of(x))
+    return (out.as_strided((M, M), (M, 1)),
+            out.as_strided((M, 1), (1, 1), M * M))

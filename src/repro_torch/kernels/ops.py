@@ -1,10 +1,13 @@
 """Public kernel layer: padding, flattening and dispatch by device.
 
-Twin of ``repro.kernels.ops`` with its padding contract: weighted sums pad
-N to ``wsum.TILE_N``, the fused int8 merge and Gram pad to ``q8agg.TILE_N``
-and ``QPB`` scales, the f32 Gram to ``multikrum.TILE_N``, and ``quantize``
-and ``add_q8_delta`` pad to ``QUANT_BLOCK`` (131072) on every device, so
-wire payloads are byte-identical to the reference's. Each call
+Twin of ``repro.kernels.ops``, with its padding contract where the bytes
+depend on it: the fused int8 merge and Gram pad to ``q8agg.TILE_N`` and
+``QPB`` scales, and ``quantize`` and ``add_q8_delta`` pad to
+``QUANT_BLOCK`` (131072) on every device, so wire payloads are
+byte-identical to the reference's. The f32 weighted sum and Gram do not
+pad: their kernels take ``[M, N]`` at any N with a row stride, so the
+caller's tensor, views included, goes straight in (zero columns would add
+nothing to either; the reference pads inside its own ``ops``). Each call
 goes to its kernel wrapper, which launches the CUDA kernel for a CUDA tensor
 and runs the plain version for a CPU tensor.
 """
@@ -111,9 +114,8 @@ def _dists(g, sq):
 
 
 def pairwise_dists(x):
-    """x: [M, N] -> pairwise squared L2 [M, M]."""
-    return _dists(*_mk.gram_and_norms(_pad_to(x.to(torch.float32), 1,
-                                              _mk.TILE_N)))
+    """x: [M, N] (views too) -> pairwise squared L2 [M, M]."""
+    return _dists(*_mk.gram_and_norms(x.to(torch.float32)))
 
 
 def multikrum_scores(x, m: int):
@@ -126,9 +128,8 @@ def multikrum_scores(x, m: int):
 # --------------------------------------------------------------------------- #
 
 def weighted_sum(x, w):
-    """x: [M, N], w: [M] -> [N]."""
-    N = x.shape[1]
-    return _ws.weighted_sum(_pad_to(x, 1, _ws.TILE_N), w)[:N]
+    """x: [M, N] (views too), w: [M] on the host or x's device -> [N]."""
+    return _ws.weighted_sum(x, w)
 
 
 def _pad_q8(q, scales):

@@ -107,16 +107,12 @@ def gram_q8(q, scales):
         raise ValueError(f"gram_q8: bad inputs q{tuple(q.shape)} {q.dtype} "
                          f"scales{tuple(scales.shape)} (N % {TILE_N} == 0, "
                          f"1 <= M <= {GRAM_MAX_M})")
-    return launch_gram(_GRAM, q.contiguous(), N // QT, M, N,
-                 scales.to(torch.float32).contiguous())
-
-
-def launch_gram(kernel, x, tiles, M, N, *extra):
-    """Launch a two-pass Gram kernel over ``tiles`` column tiles of x."""
-    blocks = min(tiles, GRAM_MAX_BLOCKS)
-    part = torch.empty((blocks, M, M), dtype=torch.float32, device=x.device)
-    g = torch.empty((M, M), dtype=torch.float32, device=x.device)
-    sq = torch.empty((M, 1), dtype=torch.float32, device=x.device)
-    kernel(_build.ptr(x), *(_build.ptr(t) for t in extra), _build.ptr(part),
-           _build.ptr(g), _build.ptr(sq), M, N, blocks, _build.stream_of(x))
+    q = q.contiguous()
+    scales = scales.to(torch.float32).contiguous()
+    blocks = min(N // QT, GRAM_MAX_BLOCKS)
+    part = torch.empty((blocks, M, M), dtype=torch.float32, device=q.device)
+    g = torch.empty((M, M), dtype=torch.float32, device=q.device)
+    sq = torch.empty((M, 1), dtype=torch.float32, device=q.device)
+    _GRAM(_build.ptr(q), _build.ptr(scales), _build.ptr(part), _build.ptr(g),
+          _build.ptr(sq), M, N, blocks, _build.stream_of(q))
     return g, sq

@@ -36,6 +36,31 @@ def weighted_sum(x, w):
                         x.to(torch.float32)).to(x.dtype)
 
 
+def weighted_sum_ordered(x, w):
+    """The weighted_sum kernel's own float32 arithmetic: ``acc = fma(w[m],
+    x[m], acc)`` for m = 0..M-1 from 0, each step rounded once, emulated in
+    float64. The product is exact there (24 + 24 bits); TwoSum recovers what
+    the float64 sum dropped, which decides a float32 tie. Bit for bit what
+    the kernel gives, at any layout and vector width; a yardstick for its
+    order, not a path of the port. x: [M, N] f32, w: [M] -> [N] f32."""
+    acc = torch.zeros(x.shape[1], dtype=torch.float64, device=x.device)
+    wf = w.to(device=x.device, dtype=torch.float64)
+    inf = torch.tensor(float("inf"), dtype=torch.float32, device=x.device)
+    for m in range(x.shape[0]):
+        p = wf[m] * x[m].to(torch.float64)
+        s = p + acc
+        pb = s - acc
+        e = (p - pb) + (acc - (s - pb))      # s + e == p + acc exactly
+        r = s.to(torch.float32)
+        r64 = r.to(torch.float64)
+        hi = torch.where(r64 > s, r, torch.nextafter(r, inf))
+        lo = torch.where(r64 < s, r, torch.nextafter(r, -inf))
+        tie = s == (hi.to(torch.float64) + lo.to(torch.float64)) * 0.5
+        r = torch.where(tie & (e > 0), hi, torch.where(tie & (e < 0), lo, r))
+        acc = r.to(torch.float64)
+    return acc.to(torch.float32)
+
+
 def quantize_int8(x, tile: int = 1024):
     """Symmetric per-tile int8 quantization. x: [N] (N % tile == 0).
     Returns (q int8 [N], scales f32 [N/tile])."""

@@ -42,7 +42,7 @@ def _wkv6_inputs(B, T, H, hs, seed, dtype=torch.float32):
 
 
 # --------------------------------------------------------------------------- #
-# CPU: the wrappers run the plain versions, the ops layer keeps its padding
+# CPU: the wrappers run the plain versions; ops pads only for the wire
 # --------------------------------------------------------------------------- #
 
 def test_cpu_tensors_take_the_plain_versions_and_launch_nothing():
@@ -124,6 +124,91 @@ def test_ops_unpadded_lengths_slice_back():
     q, s, wq = _q8_inputs(3, 2048, 6)
     got = ops.weighted_sum_q8(q, s, wq, n=1500)
     torch.testing.assert_close(got, ref.wsum_q8(q, s, wq)[:1500])
+
+
+def test_ops_hand_views_straight_to_the_kernels(monkeypatch):
+    """No F.pad and no copy: the f32 weighted sum and Gram get the caller's
+    row-strided view itself, at any N."""
+    def refuse(*a, **k):
+        raise AssertionError("ops padded an operand")
+
+    monkeypatch.setattr(ops.F, "pad", refuse)
+    seen = []
+    monkeypatch.setattr(ops._ws, "weighted_sum",
+                        lambda a, w: seen.append(a) or ref.weighted_sum(a, w))
+    monkeypatch.setattr(ops._mk, "gram_and_norms",
+                        lambda a: seen.append(a) or ref.gram_and_norms(a))
+    x = _rng_tensor((3, 8192), 13)[:, :6001]
+    w = torch.tensor([0.2, 0.3, 0.5])
+    assert ops.weighted_sum(x, w).shape == (6001,)
+    assert ops.pairwise_dists(x).shape == (3, 3)
+    assert len(seen) == 2
+    for a in seen:
+        assert (a.data_ptr(), a.shape, a.stride()) == \
+            (x.data_ptr(), x.shape, x.stride())
+
+
+def test_fedavg_keeps_its_weights_on_the_host(monkeypatch):
+    """FedAvg hands the kernel layer host weights (no host-to-device copy):
+    normalised in float64, then cast to float32, as before; the average is
+    the plain weighted sum with exactly those weights."""
+    from repro_torch.fed import aggregator
+    seen = {}
+    real = aggregator.ops.weighted_sum
+
+    def spy(x, w):
+        seen["w"] = w
+        return real(x, w)
+
+    monkeypatch.setattr(aggregator.ops, "weighted_sum", spy)
+    clients = [{"conv": {"b": _rng_tensor((6,), 20 + i),
+                         "w": _rng_tensor((5, 5, 3, 6), 30 + i)},
+                "fc": _rng_tensor((7,), 40 + i)} for i in range(3)]
+    samples = [120, 75, 311]
+    got = aggregator.fedavg_params(clients, samples)
+    w = seen["w"]
+    assert w.device.type == "cpu" and w.dtype == torch.float32
+    w64 = np.asarray(samples, np.float64)
+    np.testing.assert_array_equal(w.numpy(),
+                                  (w64 / w64.sum()).astype(np.float32))
+    vecs, spec = ops.flatten_batch(clients)
+    want = ops.unflatten_pytree(ref.weighted_sum(vecs, w), spec)
+    for (p, a), (_, b) in zip(ops.tree.leaves_with_paths(got),
+                              ops.tree.leaves_with_paths(want)):
+        assert torch.equal(a, b), p
+
+
+def _f32_of(q):
+    """The float32 nearest the rational q, ties to even (exact)."""
+    from fractions import Fraction
+    a = np.float32(float(q))
+    near = [a, np.nextafter(a, np.float32(np.inf)),
+            np.nextafter(a, np.float32(-np.inf))]
+    return min(near, key=lambda c: (abs(Fraction(float(c)) - q),
+                                    int(np.float32(c).view(np.uint32)) & 1))
+
+
+def test_weighted_sum_ordered_rounds_each_fma_once():
+    """The kernel's arithmetic, emulated: every step a float32 FMA rounded
+    once, against exact rationals; the tie cases a float64 sum alone would
+    round the wrong way included."""
+    from fractions import Fraction
+    rng = np.random.default_rng(14)
+    x = rng.standard_normal((4, 300)).astype(np.float32)
+    w = rng.uniform(0.0, 1.0, 4).astype(np.float32)
+    # acc = 1 + 2^-23; the product 2^-24 (1 - 2^-46) sits just under the
+    # midpoint, which float64 rounds onto (and ties-to-even would round up)
+    x[:2, 0] = [1 + 2.0 ** -23, 2.0 ** -24 * (1 - 2.0 ** -23)]
+    x[2:, 0] = 0.0
+    w[:2] = [1.0, 1 + 2.0 ** -23]
+    got = ref.weighted_sum_ordered(torch.from_numpy(x), torch.from_numpy(w))
+    assert got[0] == np.float32(1 + 2.0 ** -23)
+    for n in range(x.shape[1]):
+        acc = np.float32(0.0)
+        for m in range(x.shape[0]):
+            acc = _f32_of(Fraction(float(w[m])) * Fraction(float(x[m, n]))
+                          + Fraction(float(acc)))
+        assert acc.tobytes() == got[n].numpy().tobytes(), n
 
 
 # --------------------------------------------------------------------------- #
@@ -251,6 +336,54 @@ def test_gpu_gram_and_norms(m, n):
     assert torch.equal(again[0], got[0]) and torch.equal(again[1], got[1])
 
 
+def _operand(m, n, layout, dev, dtype=torch.float32, seed=0):
+    """[m, n] on the card: "contiguous" (rows 8-byte aligned at an odd
+    n * 4 / 8), "strided" (the [:, :n] view of [m, 131072]), "offset" (the
+    [:, 1:] view of [m, n + 1]: a 4-byte base and row stride)."""
+    width = {"contiguous": n, "strided": 131_072, "offset": n + 1}[layout]
+    buf = _rng_tensor((m, width), seed).to(dev, dtype)
+    return buf[:, 1:] if layout == "offset" else buf[:, :n]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("m,n,layout", [
+    (2, 62_006, "contiguous"), (2, 62_006, "strided"), (3, 62_007, "offset"),
+    (5, 1, "contiguous"), (1, 13, "offset"), (9, 4099, "strided")])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_gpu_weighted_sum_ragged_and_strided(m, n, layout, dtype):
+    """Any N, any row stride, every vector width: the plain version's
+    numbers, and equal bits from host and card weights."""
+    dev = _cuda()
+    x = _operand(m, n, layout, dev, dtype, seed=m + n)
+    w = torch.rand(m, generator=torch.Generator().manual_seed(n))
+    got = _launched("weighted_sum", lambda: wsum.weighted_sum(x, w))
+    on_card = _launched("weighted_sum",
+                        lambda: wsum.weighted_sum(x, w.to(dev)))
+    assert got.shape == (n,) and torch.equal(got, on_card)
+    want = ref.weighted_sum(x, w.to(dev))
+    tol = (m * 2.0 ** -23) if dtype == torch.float32 else 2.0 ** -7
+    scale = float((w.to(dev)[:, None] * x.float().abs()).sum(0).max())
+    assert float((got.float() - want.float()).abs().max()) <= tol * scale
+    # and bit for bit the ordered FMA chain, whatever the vector width
+    assert torch.equal(got, ref.weighted_sum_ordered(x.float(), w).to(dtype))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("m,n,layout", [
+    (3, 62_006, "contiguous"), (3, 62_006, "strided"), (8, 62_007, "offset"),
+    (1, 1, "contiguous"), (5, 300, "offset"), (12, 5000, "contiguous"),
+    (17, 10_000, "strided"), (64, 777, "contiguous")])
+def test_gpu_gram_and_norms_ragged_and_strided(m, n, layout):
+    """One launch a call at any N and row stride; G symmetric, sq its
+    diagonal, a rerun the same bits."""
+    dev = _cuda()
+    x = _operand(m, n, layout, dev, seed=m * n)
+    got = _launched("gram_and_norms", lambda: multikrum.gram_and_norms(x))
+    _assert_gram(got, ref.gram_and_norms(x), x)
+    again = multikrum.gram_and_norms(x)
+    assert torch.equal(again[0], got[0]) and torch.equal(again[1], got[1])
+
+
 @pytest.mark.gpu
 def test_gpu_gram_wrappers_refuse_more_than_64_models():
     dev = _cuda()
@@ -285,9 +418,15 @@ def test_gpu_wrappers_refuse_misaligned_and_malformed_operands():
     x = torch.zeros(4096 + 1, device=dev)
     with pytest.raises(ValueError, match="aligned"):
         quant.quantize(x[1:1025])
+    # any N and a row stride are fine now; a wrong w or a column stride not
+    x2 = torch.zeros((2, 1000), device=dev)
     with pytest.raises(ValueError):
-        wsum.weighted_sum(torch.zeros((2, 1000), device=dev),
+        wsum.weighted_sum(x2, torch.ones(3, device=dev))
+    with pytest.raises(ValueError):
+        wsum.weighted_sum(torch.zeros((1000, 2), device=dev).T,
                           torch.ones(2, device=dev))
+    with pytest.raises(ValueError):
+        multikrum.gram_and_norms(torch.zeros((1000, 2), device=dev).T)
 
 
 def _assert_wkv6(got, want, rel=1e-5):

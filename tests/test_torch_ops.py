@@ -81,6 +81,42 @@ def test_weighted_sum_matches(m, n):
                jops.weighted_sum(jnp.asarray(x), jnp.asarray(w)))
 
 
+def _laid_out(x, layout):
+    """numpy [M, N] -> a contiguous tensor, or the [:, :N] view of a zero
+    [M, 131072] buffer (the strided operand a padded dequantize hands on)."""
+    t = torch.from_numpy(x)
+    if layout == "strided":
+        buf = torch.zeros((x.shape[0], 131_072))
+        buf[:, :x.shape[1]] = t
+        t = buf[:, :x.shape[1]]
+        assert not t.is_contiguous()
+    return t
+
+
+@pytest.mark.parametrize("layout", ["contiguous", "strided"])
+def test_weighted_sum_takes_unpadded_views(layout):
+    """The paper CNN's N = 62,006, unpadded (the port) against the
+    reference, which pads inside its ops: 1e-6 relative."""
+    m, n = 3, 62_006
+    x = np.stack([_vec(n, 30 + i, 1.0) for i in range(m)])
+    w = np.random.default_rng(7).uniform(0.1, 1, m).astype(np.float32)
+    got = tops.weighted_sum(_laid_out(x, layout), torch.from_numpy(w))
+    assert got.shape == (n,)
+    _rel_close(got, jops.weighted_sum(jnp.asarray(x), jnp.asarray(w)))
+
+
+@pytest.mark.parametrize("layout", ["contiguous", "strided"])
+def test_pairwise_dists_take_unpadded_views(layout):
+    """Distances cancel: within 4 * 2^-16 of the largest squared norm, the
+    bound of test_gpu_ops_match_the_cpu_path."""
+    m, n = 3, 62_006
+    x = np.stack([_vec(n, 40 + i, 1.0) for i in range(m)])
+    got = tops.pairwise_dists(_laid_out(x, layout)).numpy()
+    want = np.asarray(jops.pairwise_dists(jnp.asarray(x)), np.float64)
+    sq = (x.astype(np.float64) ** 2).sum(1)
+    assert np.abs(got - want).max() <= 4 * 2.0 ** -16 * sq.max()
+
+
 @pytest.mark.parametrize("m,np_,n", [(2, 131_072, 62_006), (3, 5120, 5000)])
 def test_weighted_sum_q8_matches(m, np_, n):
     q, s, w = _q8(m, np_, m)
