@@ -9,16 +9,26 @@ Phases, in order; any failure exits non-zero and prints no result:
   2. build the CUDA kernels from ``src/repro_torch/kernels/csrc``;
   3. check each kernel against its plain version on the card, at the main
      path's shapes (paper CNN: N = 62,006, M or K = 2, M = 3 for the
-     MultiKRUM Gram; the int8 kernels at N padded to 131,072; ``wkv6``: the
-     serving prefill, B 4, T 64, H 32, hs 64) and at a large shape (N =
-     2^28; M = 4 for f32 sums, 8 for int8 and the Gram, so M*N >= 2^31;
-     ``wkv6``: B 8, T 4096), and time both (CUDA events, warm, averaged)
-     beside the least time the card could take and, where one PyTorch call
+     MultiKRUM Gram; the int8 kernels off payloads padded to 131,072;
+     ``wkv6``: the serving prefill, B 4, T 64, H 32, hs 64) and at a large
+     shape (N = 2^28; M = 4 for f32 sums, 8 for int8 and the Gram, so M*N
+     >= 2^31; ``wkv6``: B 8, T 4096), and time both (CUDA events: kernel,
+     plain version and library call in turns, 5 rounds of back-to-back
+     calls, each after 50 ms of warm-up calls; the medians) beside
+     the least time the card could take and, where one PyTorch call
      computes the same function, that call; ``weighted_sum`` and
      ``gram_and_norms`` also at the padded widths of earlier rows (65,536
      and 63,488) and the Gram on the strided [:, :62,006] view of a
-     [3, 131,072] buffer, each main-shape row of the two with its device
-     time a call from ``torch.profiler``;
+     [3, 131,072] buffer; ``dequantize`` (K = 1 and 2) and ``add_q8_delta``
+     through ``ops`` at the n = 62,006 columns the main path keeps (the
+     kernels line's rows) and at the whole payload (the padded rows of
+     earlier PRs), each failing on a second kernel launch a call; then, all
+     timings done, each main-shape row's device time a launch from
+     ``torch.profiler`` (which leaves a cost on every later launch: the
+     ``launch-rate`` line times the int8 ops calls before the first
+     profiler session and after the last); before it all, the host-path
+     line (host microseconds a call, the kernel bindings compared), and
+     after it an int8-delta ``reconstruct`` at the main shape;
   4. run the main paths on the card, each with the launch counts set to 0
      just before it: a 2-round Sync UnifyFL experiment of the paper CNN
      with int8 compression and accuracy scoring, a 1-round uncompressed
@@ -64,25 +74,43 @@ MAIN_N = 62_006                # paper-cnn params (configs/paper_cnn.py)
 LARGE_N = 1 << 28
 WSUM_PAD, GRAM_PAD = 4096, 2048   # the padded widths of the earlier rows
 ACC_TOL = 0.05                 # global accuracy, card vs CPU (see phase 4)
+WARM_S = 0.05                  # warm-up before each CUDA-event block
 
 
 def fail(msg: str) -> None:
     raise SystemExit(f"chip_smoke: FAILED: {msg}")
 
 
-def cuda_ms(fn, iters: int) -> float:
-    """Mean time of ``fn`` on the card over ``iters`` warm calls."""
-    for _ in range(3):
-        fn()
-    torch.cuda.synchronize()
+def timed(fns: dict, iters: int, reps: int = 5) -> dict:
+    """Time on the card of each function of ``fns``: ``reps`` rounds in
+    which each function in turn runs WARM_S seconds of warm-up calls (at
+    least 3), then ``iters`` back-to-back calls between two CUDA events;
+    the median of each function's rounds. In turns, the drift of a
+    host-bound call's time over a run (up to a third) reaches every
+    function alike; the warm-up before each block absorbs what a switch
+    costs (a streaming kernel at N = 2^28 runs up to 15 % slow for its
+    first ~10 ms of calls after other work or on fresh allocations)."""
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(iters):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / iters
+    times = {name: [] for name in fns}
+    for _ in range(reps):
+        for name, fn in fns.items():
+            t0, k = time.perf_counter(), 0
+            while k < 3 or time.perf_counter() - t0 < WARM_S:
+                fn()
+                torch.cuda.synchronize()
+                k += 1
+            start.record()
+            for _ in range(iters):
+                fn()
+            end.record()
+            torch.cuda.synchronize()
+            times[name].append(start.elapsed_time(end) / iters)
+    return {name: sorted(ts)[len(ts) // 2] for name, ts in times.items()}
+
+
+def cuda_ms(fn, iters: int, reps: int = 5) -> float:
+    return timed({"fn": fn}, iters, reps)["fn"]
 
 
 def device_time(fn, calls: int = 50) -> dict:
@@ -135,22 +163,49 @@ def quant_input(n: int, gen) -> torch.Tensor:
     return x
 
 
+def launched_once(name: str, call):
+    """``call()``, failing unless it launched kernel ``name`` exactly once
+    and no other wrapper's kernel."""
+    from repro_torch.kernels import _build
+    before = _build.launch_counts()
+    out = call()
+    after = _build.launch_counts()
+    delta = {k: after[k] - before[k] for k in after if after[k] != before[k]}
+    if delta != {name.split("_k1")[0]: 1}:
+        fail(f"{name}: one call launched {delta}")
+    return out
+
+
+def one_kernel_a_call(name: str, call, kernel: str) -> dict:
+    """Device time a launch of ``call``; fails if the profile shows more
+    than one launch a call or a kernel other than ``kernel``."""
+    extra = device_time(call)
+    if extra["launches_seen_per_call"] > 1 or any(
+            not k.startswith(kernel) for k in extra["device_kernels"]):
+        fail(f"{name}: {extra}, want one {kernel} a call")
+    return extra
+
+
 def check_kernels(shape: str, gen, iters: int):
     from repro_torch.kernels import multikrum, ops, q8agg, quant, ref, wsum
     large = shape == "large"
     rows = []
 
     def row(name, max_err, ms, plain_ms, nbytes, flops=0.0, library_ms=None,
-            check="bit-exact", peak_flops=F32_FLOPS, path=True, **dims):
+            check="bit-exact", peak_flops=F32_FLOPS, path=True, later=None,
+            **dims):
         """``path``: the operand the main path hands this kernel (the row
-        of the kernels line)."""
+        of the kernels line). ``later``: a function giving the row's
+        profiler fields, run by ``finish_rows`` once every CUDA-event
+        timing of the run is done."""
         b_ms, b_by = bound(nbytes, flops, peak_flops)
         rows.append({"name": name, "shape": shape, "path": path, **dims,
                      "max_abs_err": max_err, "check": check, "kernel_ms": ms,
                      "plain_ms": plain_ms, "library_ms": library_ms,
                      "bound_ms": b_ms, "bound_by": b_by,
                      "device": torch.cuda.get_device_name(0)})
-        print(json.dumps(rows[-1]), flush=True)
+        if later is not None:
+            rows[-1]["_later"] = later
 
     # weighted_sum: intra-silo FedAvg of M clients (f32): the unpadded
     # contiguous stack the main path hands it (8-byte-aligned rows), and at
@@ -175,17 +230,21 @@ def check_kernels(shape: str, gen, iters: int):
         w_host = w.cpu()
         if not torch.equal(wsum.weighted_sum(x, w_host), got):
             fail(f"weighted_sum {shape} N={N}: host weights give other bits")
+        fns = {"kernel": lambda: wsum.weighted_sum(x, w),
+               "plain": lambda: ref.weighted_sum(x, w),
+               "library": lambda: torch.matmul(w, x)}
+        if not large:
+            fns["host_w"] = lambda: wsum.weighted_sum(x, w_host)
+        ts = timed(fns, iters)
         extra = {} if large else {
-            "kernel_ms_host_w": cuda_ms(lambda: wsum.weighted_sum(x, w_host),
-                                        iters),
-            "device_us_per_launch_host_w": device_time(
-                lambda: wsum.weighted_sum(x, w_host))["device_us_per_launch"],
-            **device_time(lambda: wsum.weighted_sum(x, w))}
-        row("weighted_sum", err,
-            cuda_ms(lambda: wsum.weighted_sum(x, w), iters),
-            cuda_ms(lambda: ref.weighted_sum(x, w), iters),
-            (M + 1) * N * 4, 2.0 * M * N,
-            library_ms=cuda_ms(lambda: torch.matmul(w, x), iters),
+            "kernel_ms_host_w": ts["host_w"],
+            "later": lambda x=x, w=w, w_host=w_host: {
+                "device_us_per_launch_host_w": device_time(
+                    lambda: wsum.weighted_sum(x, w_host))[
+                        "device_us_per_launch"],
+                **device_time(lambda: wsum.weighted_sum(x, w))}}
+        row("weighted_sum", err, ts["kernel"], ts["plain"],
+            (M + 1) * N * 4, 2.0 * M * N, library_ms=ts["library"],
             check=f"abs err <= M*2^-23*max sum|w x| = "
                   f"{M * 2.0 ** -23 * scale:.3e}; bit-exact with the ordered "
                   "FMA chain; host w same bits",
@@ -200,8 +259,9 @@ def check_kernels(shape: str, gen, iters: int):
     if not (torch.equal(q, q0) and torch.equal(s, s0)):
         fail(f"quantize {shape}: codes or scales differ from the plain "
              f"version ({int((q != q0).sum())} codes)")
-    row("quantize", 0.0, cuda_ms(lambda: quant.quantize(xq), iters),
-        cuda_ms(lambda: ref.quantize_int8(xq), iters),
+    ts = timed({"kernel": lambda: quant.quantize(xq),
+                "plain": lambda: ref.quantize_int8(xq)}, iters)
+    row("quantize", 0.0, ts["kernel"], ts["plain"],
         N * 4 + N + N // 1024 * 4, N=N)
 
     # dequantize: K payloads in one launch (scoring ingest, K=2; K=8 large)
@@ -210,27 +270,41 @@ def check_kernels(shape: str, gen, iters: int):
                        dtype=torch.int8)
     sk = torch.rand((K, N // 1024), generator=gen, device="cuda") * 0.02
     del xq, q, q0
-    got, want = quant.dequantize(qk, sk), ref.dequantize_rows(qk, sk)
-    torch.cuda.synchronize()
-    if not torch.equal(got, want):
-        fail(f"dequantize {shape}: differs from the plain version")
-    del got, want
-    row("dequantize", 0.0, cuda_ms(lambda: quant.dequantize(qk, sk), iters),
-        cuda_ms(lambda: ref.dequantize_rows(qk, sk), iters),
-        K * N + K * N // 1024 * 4 + K * N * 4,
-        library_ms=cuda_ms(lambda: torch.mul(qk.view(K, -1, 1024),
-                                             sk.unsqueeze(-1)), iters),
-        K=K, N=N)
-    # the K=1 entry point (wire.reconstruct, quant.py:79) runs the same kernel
     q1, s1 = qk[0], sk[0]
-    if not torch.equal(quant.dequantize(q1, s1), ref.dequantize_int8(q1, s1)):
-        fail(f"dequantize K=1 {shape}: differs from the plain version")
-    row("dequantize_k1", 0.0, cuda_ms(lambda: quant.dequantize(q1, s1), iters),
-        cuda_ms(lambda: ref.dequantize_int8(q1, s1), iters),
-        N + N // 1024 * 4 + N * 4,
-        library_ms=cuda_ms(lambda: torch.mul(q1.view(-1, 1024),
-                                             s1.unsqueeze(-1)), iters),
-        K=1, N=N)
+    # the whole payload (n = N: the 2^28 rows, and at the main shape the
+    # padded rows of earlier PRs), then at the main shape the n = 62,006
+    # columns the main path keeps, through ops as wire.reconstruct (K = 1)
+    # and scorebatch.stack_decoded_vecs (K = 2) call it
+    for n, path in ([(N, True)] if large else [(N, False), (MAIN_N, True)]):
+        # values bound now: a row's profile runs after this function
+        ops_k = lambda qk=qk, sk=sk, n=n: ops.dequantize_batch(qk, sk, n)
+        ops_1 = lambda q1=q1, s1=s1, n=n: ops.dequantize(q1, s1, n)
+        for name, k, call, plain, lib in [
+                ("dequantize", K, ops_k,
+                 lambda: ref.dequantize_rows(qk, sk)[:, :n],
+                 lambda: torch.mul(qk.view(K, -1, 1024), sk.unsqueeze(-1))),
+                ("dequantize_k1", 1, ops_1,
+                 lambda: ref.dequantize_int8(q1, s1)[:n],
+                 lambda: torch.mul(q1.view(-1, 1024), s1.unsqueeze(-1)))]:
+            got, want = launched_once(name, call), plain()
+            torch.cuda.synchronize()
+            if not (got.shape == want.shape and torch.equal(got, want)):
+                fail(f"{name} {shape} n={n}: differs from the plain version")
+            bf16 = (ops.dequantize_batch(qk, sk, n, torch.bfloat16) if k > 1
+                    else ops.dequantize(q1, s1, n, torch.bfloat16))
+            if large:   # bf16 output: the float32 product rounded once
+                if not torch.equal(bf16, want.to(torch.bfloat16)):
+                    fail(f"{name} {shape} bf16: differs from the plain "
+                         "version")
+            del got, want, bf16
+            extra = {} if large else {"later": lambda name=name, call=call:
+                                      one_kernel_a_call(name, call,
+                                                        "dequantize_kernel")}
+            ts = timed({"kernel": call, "plain": plain, "library": lib},
+                       iters)
+            row(name, 0.0, ts["kernel"], ts["plain"],
+                k * n + k * -(-n // 1024) * 4 + k * n * 4,
+                library_ms=ts["library"], path=path, K=k, N=N, n=n, **extra)
 
     # wsum_q8: the fused cross-silo merge of M int8 peers
     M = K
@@ -243,33 +317,46 @@ def check_kernels(shape: str, gen, iters: int):
     if not err <= M * 2.0 ** -22 * scale:
         fail(f"wsum_q8 {shape}: max_abs_err {err} (scale {scale})")
     del got, want
-    row("wsum_q8", err, cuda_ms(lambda: q8agg.wsum_q8(qk, sk, wq), iters),
-        cuda_ms(lambda: ref.wsum_q8(qk, sk, wq), iters),
+    ts = timed({"kernel": lambda: q8agg.wsum_q8(qk, sk, wq),
+                "plain": lambda: ref.wsum_q8(qk, sk, wq)}, iters)
+    row("wsum_q8", err, ts["kernel"], ts["plain"],
         M * N + M * N // 1024 * 4 + N * 4, 2.0 * M * N,
         check=f"abs err <= M*2^-22*127*max sum w s = {M * 2.0 ** -22 * scale:.3e}",
         M=M, N=N)
     del qk, sk
     torch.cuda.empty_cache()
 
-    # add_q8_delta: the int8-delta rebuild, N padded to 131072; bit-exact
+    # add_q8_delta: the int8-delta rebuild, bit-exact: the whole payload
+    # (n = N), and at the main shape the unpadded base of n = 62,006 floats
+    # that wire.reconstruct hands ops (the payload stays 131,072 codes)
     N = LARGE_N if large else MAIN_N + (-MAIN_N) % ops.QUANT_BLOCK
     base = torch.randn((N,), generator=gen, device="cuda") * 0.05
     qd = torch.randint(-127, 128, (N,), generator=gen, device="cuda",
                        dtype=torch.int8)
     sd = torch.rand((N // 1024,), generator=gen, device="cuda") * 1e-3 + 1e-5
-    got, want = q8agg.add_q8_delta(base, qd, sd), ref.add_q8_delta(base, qd, sd)
-    torch.cuda.synchronize()
-    if not torch.equal(got, want):
-        fail(f"add_q8_delta {shape}: {int((got != want).sum())} elements "
-             "differ from the plain version")
-    del got, want
-    row("add_q8_delta", 0.0,
-        cuda_ms(lambda: q8agg.add_q8_delta(base, qd, sd), iters),
-        cuda_ms(lambda: ref.add_q8_delta(base, qd, sd), iters),
-        9 * N + N // 1024 * 4, 2.0 * N,
-        library_ms=cuda_ms(lambda: torch.addcmul(
-            base.view(-1, 1024), qd.view(-1, 1024), sd.unsqueeze(-1)), iters),
-        N=N)
+    for n, path in ([(N, True)] if large else [(N, False), (MAIN_N, True)]):
+        bn = base[:n].clone()       # the caller's own [n] tensor
+        call = lambda bn=bn, qd=qd, sd=sd, n=n: ops.add_q8_delta(bn, qd, sd,
+                                                                 n)
+        got = launched_once("add_q8_delta", call)
+        want = ref.add_q8_delta(bn, qd[:n], sd)
+        torch.cuda.synchronize()
+        if not torch.equal(got, want):
+            fail(f"add_q8_delta {shape} n={n}: {int((got != want).sum())} "
+                 "elements differ from the plain version")
+        del got, want
+        extra = {} if large else {
+            "later": lambda call=call: one_kernel_a_call(
+                "add_q8_delta", call, "add_q8_delta_kernel")}
+        ts = timed({"kernel": call,
+                    "plain": lambda: ref.add_q8_delta(bn, qd[:n], sd),
+                    "library": lambda: torch.addcmul(
+                        base.view(-1, 1024), qd.view(-1, 1024),
+                        sd.unsqueeze(-1))}, iters)
+        row("add_q8_delta", 0.0, ts["kernel"], ts["plain"],
+            9 * n + -(-n // 1024) * 4, 2.0 * n, library_ms=ts["library"],
+            path=path, N=N, n=n, **extra)
+        del bn
     del base, qd, sd
     torch.cuda.empty_cache()
 
@@ -282,8 +369,9 @@ def check_kernels(shape: str, gen, iters: int):
     # products and scale products stand for them
     err = check_gram("gram_q8", shape, q8agg.gram_q8(qg, sg),
                      ref.gram_q8(qg, sg), ref.dequantize_rows(qg, sg.double()))
-    row("gram_q8", err, cuda_ms(lambda: q8agg.gram_q8(qg, sg), iters),
-        cuda_ms(lambda: ref.gram_q8(qg, sg), iters),
+    ts = timed({"kernel": lambda: q8agg.gram_q8(qg, sg),
+                "plain": lambda: ref.gram_q8(qg, sg)}, iters)
+    row("gram_q8", err, ts["kernel"], ts["plain"],
         M * N + M * N // 1024 * 4, 2.0 * M * M * N, peak_flops=INT8_OPS,
         check="|G - G_plain| <= sqrt(N) 2^-24 |x_i| |x_j|, sq likewise; "
         "a quarter of that from float64",
@@ -309,27 +397,82 @@ def check_kernels(shape: str, gen, iters: int):
                 and torch.equal(again[1], got[1])):
             fail(f"gram_and_norms {shape} N={N} {layout}: a rerun gives "
                  "other bits")
-        extra = {} if large else device_time(
-            lambda: multikrum.gram_and_norms(xg))
-        # one launch a call: no other kernel in the profile, and no more
-        # launches than calls (the wrapper's own count says one a call)
-        if extra and (extra["launches_seen_per_call"] > 1 or
-                      any(not k.startswith("gram_and_norms_kernel")
-                          for k in extra["device_kernels"])):
-            fail(f"gram_and_norms {shape}: {extra}, want one "
-                 "gram_and_norms_kernel a call")
-        row("gram_and_norms", err,
-            cuda_ms(lambda: multikrum.gram_and_norms(xg), iters),
-            cuda_ms(lambda: ref.gram_and_norms(xg), iters),
-            4 * M * N, 2.0 * M * M * N,
-            library_ms=cuda_ms(lambda: torch.matmul(xg, xg.T), iters),
+        extra = {} if large else {"later": lambda xg=xg: one_kernel_a_call(
+            "gram_and_norms", lambda: multikrum.gram_and_norms(xg),
+            "gram_and_norms_kernel")}
+        ts = timed({"kernel": lambda: multikrum.gram_and_norms(xg),
+                    "plain": lambda: ref.gram_and_norms(xg),
+                    "library": lambda: torch.matmul(xg, xg.T)}, iters)
+        row("gram_and_norms", err, ts["kernel"], ts["plain"],
+            4 * M * N, 2.0 * M * M * N, library_ms=ts["library"],
             check="|G - G_plain| <= sqrt(N) 2^-24 |x_i| |x_j|, sq likewise; "
             "a quarter of that from float64; G symmetric, sq its diagonal, "
             "reruns the same bits",
             path=path, M=M, N=N, layout=layout, **extra)
-        del xg, got, again
+        del got, again
         torch.cuda.empty_cache()
     return rows
+
+
+def finish_rows(rows) -> None:
+    """Run each row's deferred profile (``torch.profiler`` leaves a cost on
+    every later launch, see ``launch_rate``, so it runs after the CUDA-event
+    timings) and print the rows."""
+    for r in rows:
+        later = r.pop("_later", None)
+        if later is not None:
+            r.update(later())
+        print(json.dumps(r), flush=True)
+
+
+def int8_calls(seed: int) -> dict:
+    """The main path's int8 ops calls at n = 62,006 off 131,072 payloads,
+    each as (the ops call, its library call, its kernel, the kernel's C
+    arguments for one call on fixed operands, the output allocation)."""
+    from repro_torch.kernels import _build, ops
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    q = torch.randint(-127, 128, (2, ops.QUANT_BLOCK), generator=g,
+                      device="cuda", dtype=torch.int8)
+    s = torch.rand((2, ops.QUANT_BLOCK // 1024), generator=g, device="cuda")
+    q0, s0 = q[0], s[0]
+    padded = torch.randn(ops.QUANT_BLOCK, generator=g, device="cuda")
+    base = padded[:MAIN_N].clone()
+    out = torch.empty_strided((2, MAIN_N), (MAIN_N + 2, 1), device="cuda")
+    stream = _build.stream_of(q)
+    return {
+        "dequantize": (
+            lambda: ops.dequantize(q0, s0, MAIN_N),
+            lambda: torch.mul(q0.view(-1, 1024), s0.unsqueeze(-1)),
+            "dequantize", (q.data_ptr(), MAIN_N, s.data_ptr(), 0,
+                           out.data_ptr(), MAIN_N, 1, MAIN_N, 0, stream),
+            lambda: torch.empty(MAIN_N, dtype=torch.float32,
+                                device=q.device)),
+        "dequantize_batch": (
+            lambda: ops.dequantize_batch(q, s, MAIN_N),
+            lambda: torch.mul(q.view(2, -1, 1024), s.unsqueeze(-1)),
+            "dequantize", (q.data_ptr(), q.stride(0), s.data_ptr(),
+                           s.stride(0), out.data_ptr(), MAIN_N + 2, 2,
+                           MAIN_N, 0, stream),
+            lambda: torch.empty_strided((2, MAIN_N), (MAIN_N + 2, 1),
+                                        dtype=torch.float32,
+                                        device=q.device)),
+        "add_q8_delta": (
+            lambda: ops.add_q8_delta(base, q0, s0, MAIN_N),
+            lambda: torch.addcmul(padded.view(-1, 1024), q0.view(-1, 1024),
+                                  s0.unsqueeze(-1)),
+            "add_q8_delta", (base.data_ptr(), q.data_ptr(), s.data_ptr(),
+                             out.data_ptr(), MAIN_N, stream),
+            lambda: torch.empty(MAIN_N, dtype=torch.float32,
+                                device=q.device))}
+
+
+def launch_rate(iters: int = 200) -> dict:
+    """CUDA-event time a call of the main path's int8 ops calls and of
+    their library calls, in turns (``timed``): host-bound at this size, so
+    the launch rate. Called before the run's first profiler session and
+    again after the last."""
+    return {name: timed({"ops_ms": call, "library_ms": lib}, iters)
+            for name, (call, lib, *_) in int8_calls(6).items()}
 
 
 def wkv6_inputs(B: int, T: int, H: int, hs: int, gen):
@@ -379,7 +522,7 @@ def check_wkv6(shape: str, gen, iters: int) -> dict:
                     f"|dS| <= {WKV_REL} max|S|",
            "kernel_ms": cuda_ms(lambda: rwkv6.wkv6(*args), iters),
            "plain_ms": cuda_ms(lambda: ref.wkv6_naive(*args),
-                               max(2, iters // 20)),
+                               max(2, iters // 20), reps=1),
            "library_ms": None, "bound_ms": b_ms, "bound_by": b_by,
            "device": torch.cuda.get_device_name(0)}
     print(json.dumps(row), flush=True)
@@ -387,17 +530,28 @@ def check_wkv6(shape: str, gen, iters: int) -> dict:
 
 
 def host_path(calls: int = 20000) -> dict:
-    """Host microseconds a call to get the current stream's raw handle: a
-    ``torch.cuda.Stream`` object built each call against the private raw
-    getter that ``_build.stream_of`` reads."""
+    """Host microseconds a call (mean over a run of calls after a tenth as
+    many warm-up calls, the queue drained at its end): the current stream's
+    raw handle (a ``torch.cuda.Stream`` object built each call against the
+    private raw getter that ``_build.stream_of`` reads); the main path's
+    int8 ops calls at n = 62,006 with their kernels bound four ways,
+    ``ctypes.CDLL`` (which releases the GIL around the call) or
+    ``ctypes.PyDLL`` (which keeps it), typed or packed arguments
+    (``_build.Kernel``), in the order ABCD DCBA, each beside its C call
+    alone on fixed arguments; the output allocation and the library call.
+    The binding each wrapper ships is restored."""
     from repro_torch.kernels import _build
     x = torch.zeros(1, device="cuda")
 
-    def per_call(fn):
-        t0 = time.perf_counter()
-        for _ in range(calls):
+    def per_call(fn, n=calls):
+        for _ in range(n // 10):      # warm-up
             fn()
-        return (time.perf_counter() - t0) / calls * 1e6
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) / n * 1e6
 
     line = {"phase": "host-path",
             "stream_object_us": per_call(
@@ -405,6 +559,72 @@ def host_path(calls: int = 20000) -> dict:
             "raw_stream_us": per_call(lambda: _build.stream_of(x))}
     if _build.stream_of(x) != torch.cuda.current_stream(x.device).cuda_stream:
         fail("stream_of differs from the current stream")
+    rows = int8_calls(3)
+    bindings = [(False, False), (True, False), (False, True), (True, True)]
+    for name, (call, lib, kname, args, alloc) in rows.items():
+        k = _build.KERNELS[kname]
+        shipped = (k.keep_gil, k.packed)
+        us = {}
+        for keep_gil, packed in bindings + bindings[::-1]:
+            k.keep_gil, k.packed, k._fn = keep_gil, packed, None
+            call()
+            tag = ("PyDLL" if keep_gil else "CDLL") + \
+                (" packed" if packed else " typed")
+            us.setdefault(tag, []).append(per_call(call, calls // 8))
+            us.setdefault(tag + " C call alone", []).append(
+                per_call(lambda: k(*args), calls // 8))
+        k.keep_gil, k.packed, k._fn = (*shipped, None)
+        line[f"{name}_us"] = {
+            **us, "shipped": ("PyDLL" if shipped[0] else "CDLL") +
+            (" packed" if shipped[1] else " typed"),
+            "output allocation": per_call(alloc, calls // 4),
+            "library": per_call(lib, calls // 4)}
+    print(json.dumps(line), flush=True)
+    return line
+
+
+def reconstruct_line(calls: int = 2000) -> dict:
+    """An int8-delta envelope rebuilt at the main shape (``reconstruct``:
+    the kept tiles scattered into the dense 131,072 grid, then
+    ``ops.add_q8_delta`` on the unpadded base): host microseconds a call,
+    the kernel launches a call and the device's launches a call."""
+    import numpy as np
+    from repro_torch.core import wire
+    from repro_torch.kernels import _build
+    g = torch.Generator(device="cuda").manual_seed(4)
+    base = torch.randn(MAIN_N, generator=g, device="cuda") * 0.05
+    vec = base.clone()
+    vec[:20 * 1024] += torch.randn(20 * 1024, generator=g,
+                                   device="cuda") * 1e-3
+    e = wire.encode_vec(vec, "int8-delta", base_vec=base)
+    dev = lambda a: torch.from_numpy(np.asarray(a)).to("cuda")
+    env = wire.ModelEnvelope("int8-delta", e.n, base_cid="base", q=dev(e.q),
+                             scales=dev(e.scales), tiles=dev(e.tiles))
+    out = env.reconstruct(base)
+    err = float((out - vec).abs().max())
+    # within half a quantization step of the largest kept scale
+    if out.shape != (MAIN_N,) or not err <= 0.5 * float(env.scales.max()):
+        fail(f"reconstruct: shape {tuple(out.shape)}, max |out - vec| {err}")
+    before = _build.launch_counts()["add_q8_delta"]
+    env.reconstruct(base)
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        env.reconstruct(base)
+    torch.cuda.synchronize()
+    host_us = (time.perf_counter() - t0) / calls * 1e6
+    launches = _build.launch_counts()["add_q8_delta"] - before
+    per_call = launches / (calls + 1)
+    if per_call != 1:
+        fail(f"reconstruct: {per_call} add_q8_delta launches a call")
+    prof = device_time(lambda: env.reconstruct(base))
+    line = {"phase": "reconstruct-int8-delta", "n": MAIN_N,
+            "tiles_kept": int(env.tiles.shape[0]),
+            "host_us_per_call": host_us,
+            "add_q8_delta_launches_per_call": per_call,
+            "device_launches_per_call": prof["launches_seen_per_call"],
+            "device_us_per_launch": prof["device_us_per_launch"],
+            "device_kernels": sorted(set(prof["device_kernels"])),
+            "max_abs_err_vs_vec": err}
     print(json.dumps(line), flush=True)
     return line
 
@@ -726,10 +946,17 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     gen = torch.Generator(device="cuda").manual_seed(0)
     host_path()
+    before = launch_rate()
     main_rows = check_kernels("main", gen, iters=200)
-    check_kernels("large", gen, iters=5)
-    main_rows.append(check_wkv6("main", gen, iters=200))
+    finish_rows(check_kernels("large", gen, iters=5))
+    wkv6_row = check_wkv6("main", gen, iters=200)
     check_wkv6("large", gen, iters=20)
+    # every CUDA-event timing is done: now the profiles
+    finish_rows(main_rows)
+    main_rows.append(wkv6_row)
+    reconstruct_line()
+    print(json.dumps({"phase": "launch-rate", "before_profiler": before,
+                      "after_profiler": launch_rate()}), flush=True)
 
     # phase 4: the main path, int8 (every kernel) then uncompressed
     _build.reset_launches()

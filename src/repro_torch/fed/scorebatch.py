@@ -10,8 +10,9 @@ evaluates every pulled peer model on its private test set (paper §2.6):
     **single** device->host copy (``BatchedScorer.host_syncs``).
 
   * **q8-direct ingest.** A round's packed int8 payloads are expanded by ONE
-    batched dequantize kernel launch per padded length into a ``[K, N]``
-    matrix; ``ops.unflatten_batch`` slices it into the stacked params.
+    batched dequantize kernel launch per padded length into a ``[K, n]``
+    matrix of the n values kept; ``ops.unflatten_batch`` slices it into the
+    stacked params.
 
 ``Cluster.evaluate`` shares the engine with K=1.
 """

@@ -21,18 +21,18 @@ import shutil
 import subprocess
 import threading
 from pathlib import Path
-from typing import Dict, Optional, Sequence
+from typing import Dict, Sequence
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 SOURCES = ("wsum.cu", "quant.cu", "q8agg.cu", "multikrum.cu", "wkv6.cu")
-HEADERS = ("gram.cuh",)
+HEADERS = ("gram.cuh", "stream.cuh")
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
 # no --use_fast_math: it turns x / scale into an approximate division, and
 # quantize must stay bit-exact against the reference
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC")
 
-_lib: Optional[ctypes.CDLL] = None
+_libs: Dict[bool, ctypes.CDLL] = {}
 _lock = threading.Lock()
 
 
@@ -87,33 +87,62 @@ def build() -> Path:
     return out
 
 
-def library() -> ctypes.CDLL:
-    global _lib
+def library(keep_gil: bool = False) -> ctypes.CDLL:
+    """The built library, bound by ``ctypes.CDLL`` (each call releases the
+    GIL and takes it back) or, ``keep_gil``, by ``ctypes.PyDLL`` (the call
+    holds it: for a C function that only enqueues a launch, the release is
+    pure host cost)."""
     with _lock:
-        if _lib is None:
-            lib = ctypes.CDLL(str(build()))
+        lib = _libs.get(keep_gil)
+        if lib is None:
+            lib = (ctypes.PyDLL if keep_gil else ctypes.CDLL)(str(build()))
             lib.repro_error_string.argtypes = [ctypes.c_int]
             lib.repro_error_string.restype = ctypes.c_char_p
-            _lib = lib
-    return _lib
+            _libs[keep_gil] = lib
+    return lib
 
 
 class Kernel:
-    """One C entry point of the library and its launch count."""
+    """One C entry point of the library and its launch count.
 
-    def __init__(self, symbol: str, argtypes: Sequence):
+    ``packed``: the library also exports ``<symbol>_packed(const int64_t*)``
+    taking the same arguments as one array of int64 (pointers included);
+    the call writes them into a buffer of its thread's and passes one
+    pointer, instead of ``ctypes`` converting each typed argument.
+    ``keep_gil``: bound by ``ctypes.PyDLL`` (see ``library``); off, and set
+    only by the measurement in ``chip_smoke.py`` (it measured no faster)."""
+
+    def __init__(self, symbol: str, argtypes: Sequence, packed: bool = False):
         self.symbol = symbol
         self.argtypes = list(argtypes)
+        self.keep_gil = False
+        self.packed = packed
         self.launches = 0
         self._fn = None
+        self._args = threading.local()
+
+    def _bind(self):
+        lib = library(self.keep_gil)
+        if self.packed:
+            fn = getattr(lib, self.symbol + "_packed")
+            fn.argtypes = [ctypes.c_void_p]           # the int64 array
+        else:
+            fn = getattr(lib, self.symbol)
+            fn.argtypes = self.argtypes
+        fn.restype = ctypes.c_int
+        self._fn = fn
 
     def __call__(self, *args) -> None:
         if self._fn is None:
-            fn = getattr(library(), self.symbol)
-            fn.argtypes = self.argtypes
-            fn.restype = ctypes.c_int
-            self._fn = fn
-        err = self._fn(*args)
+            self._bind()
+        if self.packed:
+            buf = getattr(self._args, "buf", None)
+            if buf is None:
+                buf = self._args.buf = (ctypes.c_int64 * len(self.argtypes))()
+            buf[:] = args
+            err = self._fn(buf)
+        else:
+            err = self._fn(*args)
         if err != 0:
             msg = library().repro_error_string(err).decode()
             raise RuntimeError(f"{self.symbol}: CUDA error {err} ({msg})")
@@ -123,8 +152,9 @@ class Kernel:
 KERNELS: Dict[str, Kernel] = {}
 
 
-def register(name: str, symbol: str, argtypes: Sequence) -> Kernel:
-    k = KERNELS[name] = Kernel(symbol, argtypes)
+def register(name: str, symbol: str, argtypes: Sequence,
+             packed: bool = False) -> Kernel:
+    k = KERNELS[name] = Kernel(symbol, argtypes, packed)
     return k
 
 
@@ -138,18 +168,24 @@ def launch_counts() -> Dict[str, int]:
 
 
 def stream_of(t) -> int:
-    """The current CUDA stream of ``t``'s device, as a raw pointer.
+    """The current CUDA stream of ``t``'s device, as a raw pointer."""
+    return raw_stream(t.get_device())
+
+
+def raw_stream(device: int) -> int:
+    """The current CUDA stream of device index ``device``, as a raw pointer.
 
     Reads the raw handle (``torch._C._cuda_getCurrentRawStream``, private)
     instead of building a ``torch.cuda.Stream`` object each call."""
     import torch
-    return torch._C._cuda_getCurrentRawStream(t.device.index)
+    return torch._C._cuda_getCurrentRawStream(device)
 
 
 def ptr(t) -> int:
     """Device pointer of a tensor the kernels read as 16-byte vectors.
-    (``weighted_sum`` and ``gram_and_norms`` pick their width from the
-    pointer and row stride, so any tensor's own alignment does for them.)"""
+    (``weighted_sum``, ``gram_and_norms``, ``dequantize`` and
+    ``add_q8_delta`` pick their widths from the pointers and row strides,
+    so any tensor's own alignment does for their inputs.)"""
     p = t.data_ptr()
     if p % 16:
         raise ValueError(f"kernel operand at {p:#x} is not 16-byte aligned "

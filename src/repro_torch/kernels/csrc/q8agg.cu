@@ -19,8 +19,16 @@
 // explicitly: a separate multiply and add would round twice and differ in
 // the last bit for about a quarter of the elements, and the rebuilt model is
 // the next round's delta base, so those bits would reach the wire.
-// Bound: memory, 4 + 1 + 4 bytes per element plus 4 per tile. Each thread
-// takes 4 elements: one char4 of codes, one float4 of base, one float4 store.
+// Bound: memory, 4 + 1 + 4 bytes per element plus 4 per tile. It takes the
+// caller's operands unpadded: a base of n floats at any 4-byte alignment (a
+// row of a dequantized [K, n] stack, a view at an offset), codes and scales
+// in whole 1024-tiles, and writes n outputs. A thread takes vectors of 4
+// (a 4-byte code load, one 16-byte or two 8-byte or four 4-byte base loads
+// by the base's alignment, a float4 streaming store), spaced so that every
+// warp-wide access is one contiguous span: four of them, all loaded before
+// their FMAs, from 2^20 elements on, one below (the paper CNN's 62,006 then
+// spread over every SM); the grid is sized from the SM count and occupancy
+// (stream.cuh).
 //
 // gram_q8: G[i, j] = sum_tiles (s_i s_j) * sum_{n in tile} q_i q_j, and
 // sq[i] = G[i, i]. Replaces src/repro/kernels/q8agg.py:122 (gram_q8, body
@@ -38,6 +46,7 @@
 #include <stdint.h>
 
 #include "gram.cuh"
+#include "stream.cuh"
 
 namespace {
 
@@ -67,21 +76,132 @@ __global__ void wsum_q8_kernel(const int8_t* __restrict__ q,
   *reinterpret_cast<float4*>(out + col) = make_float4(a0, a1, a2, a3);
 }
 
-__global__ void add_q8_delta_kernel(const float* __restrict__ base,
-                                    const int8_t* __restrict__ q,
-                                    const float* __restrict__ scales,
-                                    float* __restrict__ out, int64_t n) {
-  const int64_t n4 = n / 4;
-  const int64_t stride = (int64_t)gridDim.x * blockDim.x;
-  for (int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x; i < n4;
-       i += stride) {
-    const char4 c = *reinterpret_cast<const char4*>(q + 4 * i);
-    const float4 b = *reinterpret_cast<const float4*>(base + 4 * i);
-    const float s = scales[(4 * i) / kTile];
-    *reinterpret_cast<float4*>(out + 4 * i) =
-        make_float4(fmaf((float)c.x, s, b.x), fmaf((float)c.y, s, b.y),
-                    fmaf((float)c.z, s, b.z), fmaf((float)c.w, s, b.w));
+// Four base floats at p, from an address aligned to BA bytes (16, 8, 4).
+template <int BA>
+__device__ __forceinline__ float4 load_base4(const float* p) {
+  if constexpr (BA == 16) {
+    return stream::ld(reinterpret_cast<const float4*>(p));
+  } else if constexpr (BA == 8) {
+    const float2 a = stream::ld(reinterpret_cast<const float2*>(p));
+    const float2 b = stream::ld(reinterpret_cast<const float2*>(p) + 1);
+    return make_float4(a.x, a.y, b.x, b.y);
+  } else {
+    return make_float4(stream::ld(p), stream::ld(p + 1), stream::ld(p + 2),
+                       stream::ld(p + 3));
   }
+}
+
+// base [>= n] float32 at a BA-byte alignment (16, 8 or 4), codes [>= n]
+// at a QA-byte one (4 or 1; whole 1024-tiles, so a chunk's codes are always
+// there), scales [>= ceil(n / 1024)] -> out [n], 16-byte aligned. Warp w
+// takes chunks w, w + warps, ... of S x 128 elements, kUnroll chunks a
+// step: all their loads, then their FMAs and stores. Only the last chunk
+// masks base loads and stores.
+template <int S, int BA, int QA>
+__global__ void __launch_bounds__(stream::kMaxThreads)
+add_q8_delta_kernel(const float* __restrict__ base,
+                    const int8_t* __restrict__ q,
+                    const float* __restrict__ scales,
+                    float* __restrict__ out, int64_t n) {
+  using stream::kSpan;
+  using stream::kUnroll;
+  using stream::kVec;
+  constexpr int kChunk = S * kSpan;
+  const int lane = threadIdx.x % 32;
+  const int64_t chunks = (n + kChunk - 1) / kChunk;
+  const int64_t warps = (int64_t)gridDim.x * blockDim.x / 32;
+  for (int64_t c = ((int64_t)blockIdx.x * blockDim.x + threadIdx.x) / 32;
+       c < chunks; c += kUnroll * warps) {
+    unsigned w[kUnroll][S];
+    float4 b[kUnroll][S];
+    float s[kUnroll];
+#pragma unroll
+    for (int u = 0; u < kUnroll; ++u) {
+      const int64_t cu = c + u * warps;
+      if (cu < chunks) {
+#pragma unroll
+        for (int k = 0; k < S; ++k) {
+          const int64_t e = cu * kChunk + k * kSpan + kVec * lane;
+          w[u][k] = stream::load_codes<QA>(q + e);
+          if (e + kVec <= n) {
+            b[u][k] = load_base4<BA>(base + e);
+          } else {
+            b[u][k] = make_float4(e < n ? stream::ld(base + e) : 0.f,
+                                  e + 1 < n ? stream::ld(base + e + 1) : 0.f,
+                                  e + 2 < n ? stream::ld(base + e + 2) : 0.f,
+                                  0.f);
+          }
+        }
+        s[u] = stream::ld(scales + cu * kChunk / stream::kTile);
+      }
+    }
+#pragma unroll
+    for (int u = 0; u < kUnroll; ++u) {
+      const int64_t cu = c + u * warps;
+      if (cu < chunks) {
+#pragma unroll
+        for (int k = 0; k < S; ++k) {
+          const int64_t e = cu * kChunk + k * kSpan + kVec * lane;
+          const unsigned wk = w[u][k];
+          const float4 bk = b[u][k];
+          const float v[kVec] = {fmaf(stream::code(wk, 0), s[u], bk.x),
+                                 fmaf(stream::code(wk, 1), s[u], bk.y),
+                                 fmaf(stream::code(wk, 2), s[u], bk.z),
+                                 fmaf(stream::code(wk, 3), s[u], bk.w)};
+          if (e + kVec <= n) {
+            stream::st(reinterpret_cast<float4*>(out + e),
+                           make_float4(v[0], v[1], v[2], v[3]));
+          } else {
+#pragma unroll
+            for (int j = 0; j < kVec; ++j)
+              if (e + j < n) out[e + j] = v[j];
+          }
+        }
+      }
+    }
+  }
+}
+
+template <int S, int BA, int QA>
+cudaError_t launch_add_delta(const float* base, const int8_t* q,
+                             const float* s, float* out, int64_t n,
+                             cudaStream_t st) {
+  constexpr auto kernel = &add_q8_delta_kernel<S, BA, QA>;
+  dim3 grid;
+  int threads;
+  const int64_t chunks = (n + S * stream::kSpan - 1) / (S * stream::kSpan);
+  stream::grid_for(reinterpret_cast<const void*>(kernel),
+                   (chunks + stream::kUnroll - 1) / stream::kUnroll * 32, 1,
+                   &grid, &threads);
+  return stream::launch(kernel, grid, threads, st, base, q, s, out, n);
+}
+
+template <int S, int BA>
+cudaError_t dispatch_add_delta_q(const float* base, const int8_t* q,
+                                 const float* s, float* out, int64_t n,
+                                 cudaStream_t st) {
+  if (stream::code_align(q, 0) == 4)
+    return launch_add_delta<S, BA, 4>(base, q, s, out, n, st);
+  return launch_add_delta<S, BA, 1>(base, q, s, out, n, st);
+}
+
+template <int S>
+cudaError_t dispatch_add_delta_b(const float* base, const int8_t* q,
+                                 const float* s, float* out, int64_t n,
+                                 cudaStream_t st) {
+  const uintptr_t a = reinterpret_cast<uintptr_t>(base);
+  if (a % 16 == 0)
+    return dispatch_add_delta_q<S, 16>(base, q, s, out, n, st);
+  if (a % 8 == 0) return dispatch_add_delta_q<S, 8>(base, q, s, out, n, st);
+  return dispatch_add_delta_q<S, 4>(base, q, s, out, n, st);
+}
+
+cudaError_t dispatch_add_delta(const float* base, const int8_t* q,
+                               const float* s, float* out, int64_t n,
+                               cudaStream_t st) {
+  if (n >= REPRO_ADD_WIDE_MIN)
+    return dispatch_add_delta_b<stream::kWide>(base, q, s, out, n, st);
+  return dispatch_add_delta_b<1>(base, q, s, out, n, st);
 }
 
 constexpr int kWords = kTile / 4;       // int32 words of codes per row tile
@@ -150,12 +270,6 @@ __global__ void gram_q8_kernel(const int8_t* __restrict__ q,
   }
 }
 
-int grid_for(int64_t work) {
-  int64_t blocks = (work + kThreads - 1) / kThreads;
-  const int64_t cap = 132 * 32;  // grid-stride beyond 32 blocks per SM
-  return (int)(blocks < cap ? (blocks > 0 ? blocks : 1) : cap);
-}
-
 }  // namespace
 
 extern "C" {
@@ -174,15 +288,29 @@ int repro_wsum_q8(const void* q, const void* scales, const void* w,
   return static_cast<int>(cudaGetLastError());
 }
 
-// base: [n] float32, q: [n] int8, scales: [n / 1024] float32, n % 1024 == 0
-// -> out: [n] float32.
+// base: [>= n] float32 (4-byte aligned), q: [>= n] int8 in whole 1024-tiles,
+// scales: [>= ceil(n / 1024)] float32 -> out: [n] float32, 16-byte aligned.
 int repro_add_q8_delta(const void* base, const void* q, const void* scales,
                        void* out, int64_t n, void* stream) {
-  add_q8_delta_kernel<<<grid_for(n / 4), kThreads, 0,
-                        static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(base), static_cast<const int8_t*>(q),
-      static_cast<const float*>(scales), static_cast<float*>(out), n);
-  return static_cast<int>(cudaGetLastError());
+  if (n < 1 || reinterpret_cast<uintptr_t>(out) % 16 ||
+      reinterpret_cast<uintptr_t>(base) % 4)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const float* b = static_cast<const float*>(base);
+  const int8_t* c = static_cast<const int8_t*>(q);
+  const float* s = static_cast<const float*>(scales);
+  float* o = static_cast<float*>(out);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const cudaError_t err = dispatch_add_delta(b, c, s, o, n, st);
+  return static_cast<int>(err);
+}
+
+// repro_add_q8_delta's arguments in order, each as an int64 (pointers
+// included): one pointer to pass instead of six typed values.
+int repro_add_q8_delta_packed(const int64_t* a) {
+  return repro_add_q8_delta(
+      reinterpret_cast<const void*>(a[0]), reinterpret_cast<const void*>(a[1]),
+      reinterpret_cast<const void*>(a[2]), reinterpret_cast<void*>(a[3]), a[4],
+      reinterpret_cast<void*>(a[5]));
 }
 
 // q: [M, N] int8 (N % 1024 == 0, 1 <= M <= 64); scales: [M, N / 1024];

@@ -8,18 +8,27 @@
 //   x = q * s[tile], written as float32 or bfloat16.
 //
 // Bound: memory. quantize reads 4 bytes and writes 1 (+4 per tile) per
-// element; dequantize reads 1 (+4 per tile) and writes 4 (or 2). One block
-// owns one tile: 256 threads x 4 elements, 16-byte loads, a warp-shuffle
-// amax reduction, then each thread writes its 4 codes as one char4.
+// element: one block owns one tile, 256 threads x 4 elements, 16-byte loads,
+// a warp-shuffle amax reduction, then each thread writes its 4 codes as one
+// char4. dequantize reads 1 byte (+4 per tile) and writes 4 (or 2) per
+// element kept: it takes [K, Np] codes with a row stride and writes only the
+// n <= Np columns the caller keeps, into rows 16-byte aligned. A warp takes
+// 512 codes at once, a thread 16 as four 4-byte loads (all in flight
+// before its stores) and four float4 (or 4 x bf16) streaming stores, every
+// warp-wide access one contiguous span; the grid is sized from the SM
+// count and occupancy (stream.cuh).
 // Bit-exactness with the reference: the scale is amax times the float32
 // constant 1/127, as the reference's compiled kernel forms it (XLA turns its
 // division by a constant into that product); x / s is an IEEE division (no
 // fast math, no reciprocal multiply) and rintf rounds half to even like
-// jnp.round.
+// jnp.round. dequantize rounds (float)q * s once, and a bf16 output rounds
+// that float32 product to nearest even, as the reference's astype does.
 // Offsets are 64-bit: a [K, N] batch reaches 2^31 elements.
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <stdint.h>
+
+#include "stream.cuh"
 
 namespace {
 
@@ -53,42 +62,118 @@ __global__ void quantize_kernel(const float* __restrict__ x,
   if (threadIdx.x == 0) scales[tile] = s;
 }
 
-__device__ __forceinline__ void store4(float* p, float a, float b, float c,
-                                       float d) {
-  *reinterpret_cast<float4*>(p) = make_float4(a, b, c, d);
+template <typename T> __device__ __forceinline__ T from_f32(float v);
+template <> __device__ __forceinline__ float from_f32<float>(float v) {
+  return v;
+}
+template <>
+__device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float v) {
+  return __float2bfloat16_rn(v);
 }
 
-__device__ __forceinline__ void store4(__nv_bfloat16* p, float a, float b,
-                                       float c, float d) {
-  __nv_bfloat162 lo = __floats2bfloat162_rn(a, b);
-  __nv_bfloat162 hi = __floats2bfloat162_rn(c, d);
-  uint2 bits;
-  bits.x = *reinterpret_cast<const unsigned int*>(&lo);
-  bits.y = *reinterpret_cast<const unsigned int*>(&hi);
-  *reinterpret_cast<uint2*>(p) = bits;
+// Four products at out, 16-byte aligned for float (8 for bf16).
+__device__ __forceinline__ void store4(float* o, const float* v) {
+  stream::st(reinterpret_cast<float4*>(o),
+                 make_float4(v[0], v[1], v[2], v[3]));
 }
 
-// Flat [total] codes with scales [total / kTile]: a [K, N] batch with
-// N % kTile == 0 is the same layout, its row k's tile t at k * N/kTile + t.
-template <typename T>
-__global__ void dequantize_kernel(const int8_t* __restrict__ q,
-                                  const float* __restrict__ scales,
-                                  T* __restrict__ out, int64_t total) {
-  const int64_t n4 = total / 4;
-  const int64_t stride = (int64_t)gridDim.x * blockDim.x;
-  for (int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x; i < n4;
-       i += stride) {
-    const char4 c = *reinterpret_cast<const char4*>(q + 4 * i);
-    const float s = scales[(4 * i) / kTile];
-    store4(out + 4 * i, (float)c.x * s, (float)c.y * s, (float)c.z * s,
-           (float)c.w * s);
+__device__ __forceinline__ void store4(__nv_bfloat16* o, const float* v) {
+  const __nv_bfloat162 lo = __floats2bfloat162_rn(v[0], v[1]);
+  const __nv_bfloat162 hi = __floats2bfloat162_rn(v[2], v[3]);
+  stream::st(reinterpret_cast<uint2*>(o),
+                 make_uint2(*reinterpret_cast<const unsigned*>(&lo),
+                            *reinterpret_cast<const unsigned*>(&hi)));
+}
+
+// Row blockIdx.y of codes [K, >= n] (row stride ldq) and scales [K, >= n /
+// 1024] (row stride lds) -> its first n outputs (row stride ldo, 16-byte
+// aligned rows). Warp w takes chunks w, w + warps, ... of S x 128 codes,
+// kUnroll chunks a step: all their loads, then their stores. Codes rows
+// hold whole 1024-tiles, so a chunk's codes are always there; a chunk lies
+// in one tile (one scale), and only a row's last chunk masks stores.
+template <typename T, int S, int QA>
+__global__ void __launch_bounds__(stream::kMaxThreads)
+dequantize_kernel(const int8_t* __restrict__ q, int64_t ldq,
+                  const float* __restrict__ scales, int64_t lds,
+                  T* __restrict__ out, int64_t ldo, int64_t n) {
+  using namespace stream;
+  constexpr int kChunk = S * kSpan;
+  q += blockIdx.y * ldq;
+  scales += blockIdx.y * lds;
+  out += blockIdx.y * ldo;
+  const int lane = threadIdx.x % 32;
+  const int64_t chunks = (n + kChunk - 1) / kChunk;
+  const int64_t warps = (int64_t)gridDim.x * blockDim.x / 32;
+  for (int64_t c = ((int64_t)blockIdx.x * blockDim.x + threadIdx.x) / 32;
+       c < chunks; c += kUnroll * warps) {
+    unsigned w[kUnroll][S];
+    float s[kUnroll];
+#pragma unroll
+    for (int u = 0; u < kUnroll; ++u) {
+      const int64_t cu = c + u * warps;
+      if (cu < chunks) {
+        const int8_t* qc = q + cu * kChunk + kVec * lane;
+#pragma unroll
+        for (int k = 0; k < S; ++k) w[u][k] = load_codes<QA>(qc + k * kSpan);
+        s[u] = ld(scales + cu * kChunk / stream::kTile);
+      }
+    }
+#pragma unroll
+    for (int u = 0; u < kUnroll; ++u) {
+      const int64_t cu = c + u * warps;
+      if (cu < chunks) {
+#pragma unroll
+        for (int k = 0; k < S; ++k) {
+          const int64_t e = cu * kChunk + k * kSpan + kVec * lane;
+          float v[kVec];
+#pragma unroll
+          for (int j = 0; j < kVec; ++j) v[j] = code(w[u][k], j) * s[u];
+          if (e + kVec <= n) {
+            store4(out + e, v);
+          } else {
+#pragma unroll
+            for (int j = 0; j < kVec; ++j)
+              if (e + j < n) out[e + j] = from_f32<T>(v[j]);
+          }
+        }
+      }
+    }
   }
 }
 
-int grid_for(int64_t work) {
-  int64_t blocks = (work + kThreads - 1) / kThreads;
-  const int64_t cap = 132 * 32;
-  return (int)(blocks < cap ? (blocks > 0 ? blocks : 1) : cap);
+template <typename T, int S, int QA>
+cudaError_t launch_dq(const void* q, int64_t ldq, const float* s, int64_t lds,
+                      void* out, int64_t ldo, int K, int64_t n,
+                      cudaStream_t st) {
+  constexpr auto kernel = &dequantize_kernel<T, S, QA>;
+  dim3 grid;
+  int threads;
+  const int64_t chunks = (n + S * stream::kSpan - 1) / (S * stream::kSpan);
+  stream::grid_for(reinterpret_cast<const void*>(kernel),
+                   (chunks + stream::kUnroll - 1) / stream::kUnroll * 32, K,
+                   &grid, &threads);
+  return stream::launch(kernel, grid, threads, st,
+                        static_cast<const int8_t*>(q), ldq, s, lds,
+                        static_cast<T*>(out), ldo, n);
+}
+
+template <typename T, int S>
+cudaError_t dispatch_dq_q(const void* q, int64_t ldq, const float* s,
+                          int64_t lds, void* out, int64_t ldo, int K,
+                          int64_t n, cudaStream_t st) {
+  if (stream::code_align(q, K > 1 ? ldq : 0) == 4)
+    return launch_dq<T, S, 4>(q, ldq, s, lds, out, ldo, K, n, st);
+  return launch_dq<T, S, 1>(q, ldq, s, lds, out, ldo, K, n, st);
+}
+
+template <typename T>
+cudaError_t dispatch_dq(const void* q, int64_t ldq, const float* s,
+                        int64_t lds, void* out, int64_t ldo, int K, int64_t n,
+                        cudaStream_t st) {
+  if ((int64_t)K * n >= REPRO_DQ_WIDE_MIN)
+    return dispatch_dq_q<T, stream::kWide>(q, ldq, s, lds, out, ldo, K, n,
+                                           st);
+  return dispatch_dq_q<T, 1>(q, ldq, s, lds, out, ldo, K, n, st);
 }
 
 }  // namespace
@@ -108,22 +193,32 @@ int repro_quantize(const void* x, void* q, void* scales, int64_t n,
   return static_cast<int>(cudaGetLastError());
 }
 
-// q: [total] int8, scales: [total / 1024] -> out: [total] float32 (bf16 != 0:
-// bfloat16).
-int repro_dequantize(const void* q, const void* scales, void* out,
-                     int64_t total, int bf16, void* stream) {
-  const int grid = grid_for(total / 4);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (bf16) {
-    dequantize_kernel<__nv_bfloat16><<<grid, kThreads, 0, s>>>(
-        static_cast<const int8_t*>(q), static_cast<const float*>(scales),
-        static_cast<__nv_bfloat16*>(out), total);
-  } else {
-    dequantize_kernel<float><<<grid, kThreads, 0, s>>>(
-        static_cast<const int8_t*>(q), static_cast<const float*>(scales),
-        static_cast<float*>(out), total);
-  }
-  return static_cast<int>(cudaGetLastError());
+// q: [K, >= n] int8 codes, row stride ldq (rows of whole 1024-tiles);
+// scales: [K, >= ceil(n / 1024)] float32, row stride lds -> out: [K, n],
+// row stride ldo, float32 (bf16 != 0: bfloat16), rows 16-byte aligned.
+int repro_dequantize(const void* q, int64_t ldq, const void* scales,
+                     int64_t lds, void* out, int64_t ldo, int K, int64_t n,
+                     int bf16, void* stream) {
+  const int64_t esize = bf16 ? 2 : 4;
+  if (K < 1 || K > 65535 || n < 1 ||
+      ((reinterpret_cast<uintptr_t>(out) |
+        (uintptr_t)(K > 1 ? ldo * esize : 0)) % 16))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const float* s = static_cast<const float*>(scales);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const cudaError_t err =
+      bf16 ? dispatch_dq<__nv_bfloat16>(q, ldq, s, lds, out, ldo, K, n, st)
+           : dispatch_dq<float>(q, ldq, s, lds, out, ldo, K, n, st);
+  return static_cast<int>(err);
+}
+
+// repro_dequantize's arguments in order, each as an int64 (pointers
+// included): one pointer to pass instead of ten typed values.
+int repro_dequantize_packed(const int64_t* a) {
+  return repro_dequantize(
+      reinterpret_cast<const void*>(a[0]), a[1],
+      reinterpret_cast<const void*>(a[2]), a[3], reinterpret_cast<void*>(a[4]),
+      a[5], (int)a[6], a[7], (int)a[8], reinterpret_cast<void*>(a[9]));
 }
 
 }  // extern "C"

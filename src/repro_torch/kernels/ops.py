@@ -1,15 +1,17 @@
 """Public kernel layer: padding, flattening and dispatch by device.
 
 Twin of ``repro.kernels.ops``, with its padding contract where the bytes
-depend on it: the fused int8 merge and Gram pad to ``q8agg.TILE_N`` and
-``QPB`` scales, and ``quantize`` and ``add_q8_delta`` pad to
-``QUANT_BLOCK`` (131072) on every device, so wire payloads are
-byte-identical to the reference's. The f32 weighted sum and Gram do not
-pad: their kernels take ``[M, N]`` at any N with a row stride, so the
-caller's tensor, views included, goes straight in (zero columns would add
-nothing to either; the reference pads inside its own ``ops``). Each call
-goes to its kernel wrapper, which launches the CUDA kernel for a CUDA tensor
-and runs the plain version for a CPU tensor.
+depend on it: ``quantize`` pads to ``QUANT_BLOCK`` (131072) on every device,
+so wire payloads are byte-identical to the reference's, and the fused int8
+merge and Gram pad to ``q8agg.TILE_N`` and ``QPB`` scales. The other kernels
+take the caller's tensors as they are: the f32 weighted sum and Gram take
+``[M, N]`` at any N with a row stride (views included), ``dequantize`` and
+``dequantize_batch`` write only the ``n`` columns kept (``[n]``, or a
+``[K, n]`` view with 16-byte aligned rows), and ``add_q8_delta`` takes a
+base of ``n`` floats at any alignment with the payload's own codes (the
+reference pads these inside its own ``ops`` for its Pallas grids). Each
+call goes to its kernel wrapper, which launches the CUDA kernel for a CUDA
+tensor and runs the plain version for a CPU tensor.
 """
 from __future__ import annotations
 
@@ -151,16 +153,14 @@ def weighted_sum_q8(q, scales, w, n: int = None):
 
 
 def add_q8_delta(base, q, scales, n: int = None):
-    """Fused delta-apply: base [n] f32 + dequantized int8 delta, one pass.
-    q: [Np] int8 (Np % QTILE == 0), scales: [Np/QTILE] -> [n] f32 without
-    building the f32 delta (n defaults to len(base))."""
+    """Fused delta-apply: base [>= n] f32 + dequantized int8 delta, one pass.
+    q: [Np] int8 (Np % QTILE == 0, Np >= n), scales: [Np/QTILE] -> [n] f32
+    without building the f32 delta (n defaults to len(base)). Nothing is
+    padded or sliced: the kernel takes these tensors as they are."""
     n = int(base.shape[0]) if n is None else n
     if q.shape[0] % QTILE:
         raise ValueError(f"delta payload must be {QTILE}-aligned")
-    qp = _pad_to(q, 0, QUANT_BLOCK)
-    sp = _pad_to(scales, 0, QUANT_BLOCK // QTILE)
-    bp = F.pad(base[:n].to(torch.float32), (0, qp.shape[0] - n))
-    return _q8.add_q8_delta(bp, qp, sp)[:n]
+    return _q8.add_q8_delta(base, q, scales, n)
 
 
 def pairwise_dists_q8(q, scales):
@@ -186,12 +186,16 @@ def quantize(x):
 
 
 def dequantize(q, scales, n, dtype=torch.float32):
-    return _q.dequantize(q, scales, dtype)[:n]
+    """q [Np] int8 + scales [Np/QTILE] -> [n] in ``dtype``, contiguous; only
+    the n values kept are written."""
+    return _q.dequantize(q, scales, dtype, n)
 
 
 def dequantize_batch(q, scales, n, dtype=torch.float32):
-    """q [K, Np] int8 + scales [K, Np/QTILE] -> [K, n] in ONE launch."""
-    return _q.dequantize(q, scales, dtype)[:, :n]
+    """q [K, Np] int8 + scales [K, Np/QTILE] -> [K, n] in ONE launch: a
+    row-strided view (row stride n rounded up to 16 bytes) holding only the
+    n columns kept."""
+    return _q.dequantize(q, scales, dtype, n)
 
 
 # --------------------------------------------------------------------------- #

@@ -7,7 +7,9 @@ tile folds ``w[m] * s[m, tile]`` once in shared memory.
 
 ``add_q8_delta``: ``out = base + q * s``, rounded once (an FMA), the rebuild
 of an ``int8-delta`` envelope onto its base (replaces ``q8agg.py:77``).
-Bound: memory, ``9*N + 4*N/1024`` bytes; 4 elements a thread.
+Bound: memory, ``9*n + 4*n/1024`` bytes; 4 elements a thread below 2^20
+(the paper CNN's n spreads over every SM), 16 from there on. It takes the
+caller's base unpadded, at any 4-byte alignment, and writes ``[n]``.
 
 ``gram_q8``: the Gram matrix and row norms of the dequantized models,
 int8 x int8 -> int32 exact per 1024-tile, scaled and summed across tiles in
@@ -25,13 +27,11 @@ import ctypes
 import torch
 
 from repro_torch.kernels import _build, ref
-from repro_torch.kernels.quant import LANE
 from repro_torch.kernels.quant import TILE as QT
 
 QPB = 4               # quant tiles per block of the reference layout
 TILE_N = QPB * QT     # the padding contract of ops._pad_q8 (ops.py:160-176)
 MAX_M = 1024          # folded weights live in shared memory
-QUANT_BLOCK = QT * LANE   # add_q8_delta's padding contract (ops.QUANT_BLOCK)
 GRAM_MAX_M = 64           # gram_q8: row pairs per block (csrc/gram.cuh)
 GRAM_MAX_BLOCKS = 132 * 8  # one wave of 256-thread blocks on 132 SMs
 
@@ -42,7 +42,7 @@ _KERNEL = _build.register(
 _ADD_DELTA = _build.register(
     "add_q8_delta", "repro_add_q8_delta",
     [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-     ctypes.c_int64, ctypes.c_void_p])
+     ctypes.c_int64, ctypes.c_void_p], packed=True)
 _GRAM = _build.register(
     "gram_q8", "repro_gram_q8",
     [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
@@ -71,26 +71,34 @@ def wsum_q8(q, scales, w):
     return out
 
 
-def add_q8_delta(base, q, scales):
-    """base: [N] f32, q: [N] int8 (N % QUANT_BLOCK == 0), scales: [N/QT]
-    -> [N] f32 = base + q * s, one rounding."""
-    if q.device.type == "cpu":
-        return ref.add_q8_delta(base, q, scales, QT)
-    if q.device.type != "cuda":
+def add_q8_delta(base, q, scales, n=None):
+    """base: [>= n] f32, q: [Np] int8 (Np % QT == 0, n <= Np), scales:
+    [Np/QT] -> [n] f32 = base + q * s, one rounding (n defaults to
+    len(base)). The base may be any unit-stride view (an offset, a row of a
+    [K, n] stack). The checks are written for a thin host path."""
+    n = base.shape[0] if n is None else n
+    if not q.is_cuda:
+        if q.device.type == "cpu":
+            return ref.add_q8_delta(base[:n], q[:n], scales, QT)
         raise ValueError(f"add_q8_delta: no kernel for device {q.device}")
-    (N,) = q.shape
-    if q.dtype != torch.int8 or N % QUANT_BLOCK or \
-            tuple(base.shape) != (N,) or tuple(scales.shape) != (N // QT,):
-        raise ValueError(f"add_q8_delta: bad inputs base{tuple(base.shape)} "
+    Np = q.shape[0] if q.dim() == 1 else 0
+    if not (q.dtype is torch.int8 and Np % QT == 0 and Np > 0
+            and q.is_contiguous() and 0 < n <= Np and base.dim() == 1
+            and base.shape[0] >= n and scales.shape == (Np // QT,)):
+        raise ValueError(f"add_q8_delta: bad operands base{tuple(base.shape)} "
                          f"q{tuple(q.shape)} {q.dtype} "
-                         f"scales{tuple(scales.shape)} "
-                         f"(N % {QUANT_BLOCK} == 0)")
-    q = q.contiguous()
-    base = base.to(device=q.device, dtype=torch.float32).contiguous()
-    scales = scales.to(torch.float32).contiguous()
-    out = torch.empty((N,), dtype=torch.float32, device=q.device)
-    _ADD_DELTA(_build.ptr(base), _build.ptr(q), _build.ptr(scales),
-               _build.ptr(out), N, _build.stream_of(q))
+                         f"scales{tuple(scales.shape)}, n={n} (q [Np], "
+                         f"Np % {QT} == 0, 1 <= n <= Np, len(base) >= n)")
+    dev = q.get_device()
+    if not (base.dtype is torch.float32 and base.is_contiguous()
+            and base.get_device() == dev):
+        base = base[:n].to(device=q.device, dtype=torch.float32).contiguous()
+    if not (scales.dtype is torch.float32 and scales.is_contiguous()
+            and scales.get_device() == dev):
+        scales = scales.to(device=q.device, dtype=torch.float32).contiguous()
+    out = torch.empty(n, dtype=torch.float32, device=dev)
+    _ADD_DELTA(base.data_ptr(), q.data_ptr(), scales.data_ptr(),
+               out.data_ptr(), n, _build.raw_stream(dev))
     return out
 
 

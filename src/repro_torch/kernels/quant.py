@@ -5,8 +5,11 @@ the body ``_dq_kernel`` that both ``quant.py:79`` (``dequantize``, one
 payload) and ``quant.py:55`` (``dequantize_batch``, K payloads in one
 launch) run. CUDA source: ``csrc/quant.cu``. Bound on the card: memory —
 quantize moves 5 bytes per element (+4 per 1024-tile), dequantize 5 (or 3
-for bf16 output). One block per tile with a warp-shuffle amax; ``x / s`` is
-an IEEE division and rounding is half-to-even, so codes are bit-exact.
+for bf16 output) per element it keeps. One block per tile with a
+warp-shuffle amax; ``x / s`` is an IEEE division and rounding is
+half-to-even, so codes are bit-exact. ``dequantize`` takes the payloads as
+they are (row-strided ``[K, Np]``) and writes only the ``n`` columns the
+caller keeps, 16 codes a thread.
 """
 from __future__ import annotations
 
@@ -25,8 +28,10 @@ _Q = _build.register(
      ctypes.c_void_p])
 _DQ = _build.register(
     "dequantize", "repro_dequantize",
-    [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int64,
-     ctypes.c_int, ctypes.c_void_p])
+    [ctypes.c_void_p, ctypes.c_int64, ctypes.c_void_p, ctypes.c_int64,
+     ctypes.c_void_p, ctypes.c_int64, ctypes.c_int, ctypes.c_int64,
+     ctypes.c_int, ctypes.c_void_p], packed=True)
+MAX_K = 65535        # rows are the grid's y axis
 
 
 def _cuda_only(t, name: str) -> None:
@@ -50,22 +55,52 @@ def quantize(x):
     return q, s
 
 
-def dequantize(q, scales, dtype=torch.float32):
-    """q: [..., N] int8 (N % TILE == 0); scales: [..., N/TILE] -> [..., N]
-    in ``dtype`` (f32 or bf16). One launch for any number of rows."""
-    if q.device.type == "cpu":
-        flat = ref.dequantize_int8(q.reshape(-1), scales.reshape(-1), TILE)
-        return flat.reshape(q.shape).to(dtype)
-    _cuda_only(q, "dequantize")
-    if q.dtype != torch.int8 or q.shape[-1] % TILE or \
-            tuple(scales.shape) != (*q.shape[:-1], q.shape[-1] // TILE):
-        raise ValueError(f"dequantize: bad inputs q{tuple(q.shape)} {q.dtype} "
-                         f"scales{tuple(scales.shape)}")
-    if dtype not in (torch.float32, torch.bfloat16):
+def _plain_dequantize(q, scales, dtype, n):
+    rows = ref.dequantize_rows(q.reshape(-1, q.shape[-1]),
+                               scales.reshape(-1, scales.shape[-1]), TILE)
+    out = rows.reshape(q.shape).to(dtype)
+    return out if n is None else out[..., :n]
+
+
+def dequantize(q, scales, dtype=torch.float32, n=None):
+    """q: [Np] or [K, Np] int8 (Np % TILE == 0; rows may be strided);
+    scales: [Np/TILE] or [K, Np/TILE] -> the first ``n`` (default Np)
+    columns in ``dtype`` (f32 or bf16): a contiguous [n], or a [K, n] view
+    whose rows start 16-byte aligned (row stride n rounded up to 16 bytes).
+    One launch for any number of rows. The checks are written for a thin
+    host path."""
+    if not q.is_cuda:
+        if q.device.type == "cpu":
+            return _plain_dequantize(q, scales, dtype, n)
+        raise ValueError(f"dequantize: no kernel for device {q.device}")
+    bf16 = dtype is torch.bfloat16
+    if not bf16 and dtype is not torch.float32:
         raise TypeError(f"dequantize: output must be f32 or bf16, got {dtype}")
-    q = q.contiguous()
-    scales = scales.to(torch.float32).contiguous()
-    out = torch.empty(q.shape, dtype=dtype, device=q.device)
-    _DQ(_build.ptr(q), _build.ptr(scales), _build.ptr(out), q.numel(),
-        int(dtype == torch.bfloat16), _build.stream_of(q))
+    shape, strides = q.shape, q.stride()
+    two = len(shape) == 2
+    Np = shape[-1] if shape else 0
+    K, ldq = (shape[0], strides[0]) if two else (1, Np)
+    n = Np if n is None else n
+    tiles = Np // TILE
+    if not (q.dtype is torch.int8 and len(shape) in (1, 2) and Np % TILE == 0
+            and 0 < n <= Np and strides[-1] == 1 and (K == 1 or ldq >= Np)
+            and 0 < K <= MAX_K
+            and scales.shape == ((K, tiles) if two else (tiles,))):
+        raise ValueError(f"dequantize: bad operands q{tuple(shape)} "
+                         f"{q.dtype} strides {strides}, "
+                         f"scales{tuple(scales.shape)}, n={n} (q [Np] or "
+                         f"[K, Np], Np % {TILE} == 0, 1 <= n <= Np, unit "
+                         "column stride)")
+    dev = q.get_device()
+    if not (scales.dtype is torch.float32 and scales.is_contiguous()
+            and scales.get_device() == dev):
+        scales = scales.to(device=q.device, dtype=torch.float32).contiguous()
+    if two:
+        a = 8 if bf16 else 4                 # 16 bytes of outputs
+        ldo = (n + a - 1) // a * a
+        out = torch.empty_strided((K, n), (ldo, 1), dtype=dtype, device=dev)
+    else:
+        out, ldo = torch.empty(n, dtype=dtype, device=dev), n
+    _DQ(q.data_ptr(), ldq, scales.data_ptr(), tiles, out.data_ptr(), ldo, K,
+        n, bf16, _build.raw_stream(dev))
     return out

@@ -67,6 +67,40 @@ def test_add_q8_delta_bit_exact_with_the_kernel_path(n, np_, seed):
     np.testing.assert_array_equal(got.numpy(), want)
 
 
+def _base_laid_out(base, layout):
+    """numpy [n] -> the torch base ``wire.reconstruct`` may hand over: a
+    fresh tensor, a view at a 1-float offset, or row 1 of a row-strided
+    [3, n] view (a dequantized stack)."""
+    n = base.shape[0]
+    if layout == "offset":
+        buf = torch.zeros(n + 1)
+        buf[1:] = torch.from_numpy(base)
+        return buf[1:]
+    if layout == "row":
+        buf = torch.zeros((3, n + 3))
+        buf[1, :n] = torch.from_numpy(base)
+        return buf[:, :n][1]
+    return torch.from_numpy(base)
+
+
+@pytest.mark.parametrize("n", [5_000, 62_006, 131_072])
+@pytest.mark.parametrize("layout", ["fresh", "offset", "row"])
+def test_add_q8_delta_unpadded_bit_exact(n, layout):
+    """The port hands its kernel the unpadded base (any view) and the
+    131,072-padded payload; the reference pads the base for its Pallas
+    grid. The same bits."""
+    rng = np.random.default_rng(n)
+    base = (rng.standard_normal(n) * 0.05).astype(np.float32)
+    q = rng.integers(-127, 128, 131_072).astype(np.int8)
+    s = rng.uniform(1e-5, 1e-3, 128).astype(np.float32)
+    want = np.asarray(jops.add_q8_delta(jnp.asarray(base), jnp.asarray(q),
+                                        jnp.asarray(s), n))
+    tb = _base_laid_out(base, layout)
+    got = tops.add_q8_delta(tb, torch.from_numpy(q), torch.from_numpy(s), n)
+    assert got.shape == (n,) and got.dtype == torch.float32
+    np.testing.assert_array_equal(got.numpy(), want)
+
+
 def test_add_q8_delta_refuses_unaligned_payloads():
     with pytest.raises(ValueError, match="1024-aligned"):
         tops.add_q8_delta(torch.zeros(10), torch.zeros(1000, dtype=torch.int8),

@@ -148,6 +148,45 @@ def test_ops_hand_views_straight_to_the_kernels(monkeypatch):
             (x.data_ptr(), x.shape, x.stride())
 
 
+def test_ops_hand_int8_payloads_straight_to_the_kernels(monkeypatch):
+    """No F.pad, no _pad_to and no slice: ``dequantize``,
+    ``dequantize_batch`` and ``add_q8_delta`` hand their wrappers the
+    caller's own tensors and the length to keep, and return what the
+    wrapper returns."""
+    def refuse(*a, **k):
+        raise AssertionError("ops padded an operand")
+
+    monkeypatch.setattr(ops.F, "pad", refuse)
+    monkeypatch.setattr(ops, "_pad_to", refuse)
+    seen, outs = [], []
+
+    def spy(fn):
+        def call(*args):
+            seen.append(args)
+            outs.append(fn(*args))
+            return outs[-1]
+        return call
+
+    monkeypatch.setattr(ops._q, "dequantize", spy(quant.dequantize))
+    monkeypatch.setattr(ops._q8, "add_q8_delta", spy(q8agg.add_q8_delta))
+    q, s, _ = _q8_inputs(2, 131072, 15)
+    base = _rng_tensor((6002,), 16)[1:6001]
+    results = [ops.dequantize(q[1], s[1], 6000),
+               ops.dequantize_batch(q, s, 6000, torch.bfloat16),
+               ops.add_q8_delta(base, q[0], s[0], 6000)]
+    assert [a[-1] for a in seen] == [6000, 6000, 6000]
+    handed = [(seen[0][0], seen[0][1]), (seen[1][0], seen[1][1]),
+              (seen[2][0], seen[2][1]), (seen[2][2],)]
+    for got, want in zip(handed, [(q[1], s[1]), (q, s), (base, q[0]),
+                                  (s[0],)]):
+        for a, b in zip(got, want):
+            assert (a.data_ptr(), a.shape, a.stride()) == \
+                (b.data_ptr(), b.shape, b.stride())
+    assert seen[1][2] is torch.bfloat16
+    assert all(r is o for r, o in zip(results, outs))
+    assert [tuple(r.shape) for r in results] == [(6000,), (2, 6000), (6000,)]
+
+
 def test_fedavg_keeps_its_weights_on_the_host(monkeypatch):
     """FedAvg hands the kernel layer host weights (no host-to-device copy):
     normalised in float64, then cast to float32, as before; the average is
@@ -297,6 +336,124 @@ def test_gpu_add_q8_delta_bit_exact(n):
     assert torch.equal(got, ref.add_q8_delta(base, q, s))
     assert torch.equal(got.cpu(), ref.add_q8_delta(base.cpu(), q.cpu(),
                                                    s.cpu()))
+
+
+def _codes(k, np_, layout, dev, seed):
+    """[k, np_] codes and [k, np_/1024] scales on the card: "contiguous",
+    "strided" (the [:, :np_] view of [k, np_ + 1024]), or at a 4-byte
+    ("offset4") or 1-byte ("offset1") offset from a 16-byte boundary (then
+    the row stride is np_ + 4 or np_ + 1)."""
+    q, s, _ = _q8_inputs(k, np_, seed)
+    extra = {"contiguous": 0, "strided": 1024, "offset4": 4, "offset1": 1}
+    off = extra[layout] if layout.startswith("offset") else 0
+    buf = torch.zeros((k, np_ + extra[layout]), dtype=torch.int8, device=dev)
+    buf[:, off:off + np_] = q.to(dev)
+    return buf[:, off:off + np_], s.to(dev)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n,np_", [(1, 1024), (15, 1024), (17, 1024),
+                                   (1023, 1024), (62_006, 131_072),
+                                   (131_072, 131_072), (131_073, 262_144)])
+@pytest.mark.parametrize("k,layout", [(1, "contiguous"), (3, "strided"),
+                                      (3, "offset4"), (2, "offset1")])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_gpu_dequantize_ragged_and_strided(n, np_, k, layout, dtype):
+    """Only the n columns kept, from row-strided codes at any alignment:
+    the plain version's bits, one launch, rows 16-byte aligned."""
+    dev = _cuda()
+    q, s = _codes(k, np_, layout, dev, n + k)
+    got = _launched("dequantize",
+                    lambda: quant.dequantize(q, s, dtype, n))
+    assert got.shape == (k, n) and got.dtype == dtype
+    assert got.stride(1) == 1 and got.stride(0) * got.element_size() % 16 == 0
+    assert got.data_ptr() % 16 == 0
+    assert torch.equal(got, ref.dequantize_rows(q, s)[:, :n].to(dtype))
+    one = _launched("dequantize",
+                    lambda: ops.dequantize(q[-1], s[-1], n, dtype))
+    assert one.shape == (n,) and one.is_contiguous()
+    assert torch.equal(one, got[-1])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n,np_", [(1, 1024), (15, 1024), (17, 1024),
+                                   (1023, 1024), (62_006, 131_072),
+                                   (131_073, 262_144),
+                                   ((1 << 20) + 17, (1 << 20) + 1024)])
+@pytest.mark.parametrize("offset", [0, 1, 2])
+def test_gpu_add_q8_delta_ragged_and_misaligned(n, np_, offset):
+    """A base of n floats at a 0-, 4- or 8-byte offset from a 16-byte
+    boundary, the payload's codes as they are: the plain version's bits
+    (fmaf on the card, one float64 rounding on the CPU), one launch; from
+    2^20 elements on the kernel takes four vectors a thread."""
+    dev = _cuda()
+    q, s, _ = _q8_inputs(1, np_, n + offset)
+    q, s = q[0].to(dev), s[0].to(dev)
+    buf = _rng_tensor((n + offset,), n, scale=0.05).to(dev)
+    base = buf[offset:]
+    assert base.data_ptr() % 16 == 4 * offset
+    got = _launched("add_q8_delta",
+                    lambda: ops.add_q8_delta(base, q, s, n))
+    assert got.shape == (n,)
+    assert torch.equal(got, ref.add_q8_delta(base, q[:n], s))
+    assert torch.equal(got.cpu(), ref.add_q8_delta(base.cpu(), q[:n].cpu(),
+                                                   s.cpu()))
+
+
+@pytest.mark.gpu
+def test_gpu_int8_ops_launch_once_and_nothing_else():
+    """At the paper CNN's n from 131,072 payloads, each ops call is exactly
+    one launch of its own kernel (no pad, no copy, no plain fallback); a
+    base that is a row of the dequantized stack included."""
+    dev = _cuda()
+    q, s = _codes(2, 131_072, "contiguous", dev, 3)
+    for name, call in [
+            ("dequantize", lambda: ops.dequantize(q[0], s[0], 62_006)),
+            ("dequantize", lambda: ops.dequantize_batch(q, s, 62_006)),
+            ("add_q8_delta", lambda: ops.add_q8_delta(
+                ops.dequantize_batch(q, s, 62_006)[1], q[0], s[0], 62_006))]:
+        call()                                    # the row: built first
+        before = _build.launch_counts()
+        with torch.profiler.profile(activities=[
+                torch.profiler.ProfilerActivity.CUDA]) as prof:
+            call()
+            torch.cuda.synchronize()
+        after = _build.launch_counts()
+        delta = {k: after[k] - before[k] for k in after
+                 if after[k] != before[k]}
+        if name == "add_q8_delta":   # the base's own dequantize, then ours
+            assert delta == {"dequantize": 1, "add_q8_delta": 1}
+        else:
+            assert delta == {name: 1}
+        # the profiler may drop events, never add them: no other kernel
+        kern = [e for e in prof.key_averages()
+                if e.device_type == torch.autograd.DeviceType.CUDA]
+        assert sum(e.count for e in kern) <= sum(delta.values())
+        assert all("dequantize_kernel" in e.key or "add_q8_delta_kernel"
+                   in e.key for e in kern), [e.key for e in kern]
+
+
+@pytest.mark.gpu
+def test_gpu_int8_wrappers_refuse_malformed_operands():
+    dev = _cuda()
+    q, s = _codes(2, 4096, "contiguous", dev, 4)
+    with pytest.raises(ValueError):
+        quant.dequantize(q, s[:, :3])                   # wrong scales length
+    with pytest.raises(ValueError):
+        quant.dequantize(q, s, n=4097)                  # n > Np
+    with pytest.raises(ValueError):
+        quant.dequantize(q[:, :4000], s)                # Np % 1024
+    with pytest.raises(ValueError):
+        quant.dequantize(q.T.contiguous().T, s)         # column stride
+    base = torch.zeros(4096, device=dev)
+    with pytest.raises(ValueError):
+        q8agg.add_q8_delta(base, q[0], s[0, :3])        # wrong scales length
+    with pytest.raises(ValueError):
+        q8agg.add_q8_delta(torch.zeros(5000, device=dev), q[0], s[0])
+    with pytest.raises(ValueError):
+        q8agg.add_q8_delta(base[:100], q[0], s[0], 200)  # base too short
+    with pytest.raises(ValueError, match="1024-aligned"):
+        ops.add_q8_delta(base, q[0, :1000], s[0])
 
 
 def _assert_gram(got, want, x):

@@ -73,6 +73,37 @@ def test_dequantize_and_batch_bit_exact():
     np.testing.assert_array_equal(bt.numpy(), np.asarray(bj))
 
 
+def _bits(a):
+    """Bit patterns of a torch or JAX array (f32 or bf16)."""
+    if isinstance(a, torch.Tensor):
+        a = a.contiguous()
+        return a.view(torch.int16 if a.dtype == torch.bfloat16
+                      else torch.int32).numpy()
+    a = np.asarray(a)
+    return a.view(np.int16 if a.dtype.itemsize == 2 else np.int32)
+
+
+@pytest.mark.parametrize("n", [1, 5_000, 62_006, 131_072])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("k", [1, 3])
+def test_dequantize_unpadded_bit_exact(k, dtype, n):
+    """n columns kept of 131,072-padded payloads: ``dequantize`` (row 0) and
+    ``dequantize_batch`` (k rows) give the reference's bits, unpadded,
+    [n] and [k, n]."""
+    q, s, _ = _q8(k, 131_072, 7 + k)
+    jd, td = getattr(jnp, dtype), getattr(torch, dtype)
+    one_j = jops.dequantize(jnp.asarray(q[0]), jnp.asarray(s[0]), n, jd)
+    one_t = tops.dequantize(torch.from_numpy(q[0]), torch.from_numpy(s[0]),
+                            n, td)
+    assert one_t.shape == (n,) and one_t.dtype == td
+    np.testing.assert_array_equal(_bits(one_t), _bits(one_j))
+    bj = jops.dequantize_batch(jnp.asarray(q), jnp.asarray(s), n, jd)
+    bt = tops.dequantize_batch(torch.from_numpy(q), torch.from_numpy(s), n,
+                               td)
+    assert bt.shape == (k, n) and bt.dtype == td
+    np.testing.assert_array_equal(_bits(bt), _bits(bj))
+
+
 @pytest.mark.parametrize("m,n", [(2, 62_006), (5, 4096)])
 def test_weighted_sum_matches(m, n):
     x = np.stack([_vec(n, 10 + i, 1.0) for i in range(m)])
