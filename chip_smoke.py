@@ -193,15 +193,19 @@ def check_kernels(shape: str, gen, iters: int):
 
     def row(name, max_err, ms, plain_ms, nbytes, flops=0.0, library_ms=None,
             check="bit-exact", peak_flops=F32_FLOPS, path=True, later=None,
-            **dims):
+            library_n=None, **dims):
         """``path``: the operand the main path hands this kernel (the row
         of the kernels line). ``later``: a function giving the row's
         profiler fields, run by ``finish_rows`` once every CUDA-event
-        timing of the run is done."""
+        timing of the run is done. ``library_n``: the columns the library
+        call computes a row (default: the kernel's own, ``n`` or ``N``)."""
         b_ms, b_by = bound(nbytes, flops, peak_flops)
+        if library_ms is not None and library_n is None:
+            library_n = dims.get("n", dims.get("N"))
         rows.append({"name": name, "shape": shape, "path": path, **dims,
                      "max_abs_err": max_err, "check": check, "kernel_ms": ms,
                      "plain_ms": plain_ms, "library_ms": library_ms,
+                     "library_n": library_n,
                      "bound_ms": b_ms, "bound_by": b_by,
                      "device": torch.cuda.get_device_name(0)})
         if later is not None:
@@ -290,12 +294,12 @@ def check_kernels(shape: str, gen, iters: int):
             torch.cuda.synchronize()
             if not (got.shape == want.shape and torch.equal(got, want)):
                 fail(f"{name} {shape} n={n}: differs from the plain version")
+            # bf16 output: the float32 product rounded once
             bf16 = (ops.dequantize_batch(qk, sk, n, torch.bfloat16) if k > 1
                     else ops.dequantize(q1, s1, n, torch.bfloat16))
-            if large:   # bf16 output: the float32 product rounded once
-                if not torch.equal(bf16, want.to(torch.bfloat16)):
-                    fail(f"{name} {shape} bf16: differs from the plain "
-                         "version")
+            if not torch.equal(bf16, want.to(torch.bfloat16)):
+                fail(f"{name} {shape} n={n} bf16: differs from the plain "
+                     "version")
             del got, want, bf16
             extra = {} if large else {"later": lambda name=name, call=call:
                                       one_kernel_a_call(name, call,
@@ -304,7 +308,8 @@ def check_kernels(shape: str, gen, iters: int):
                        iters)
             row(name, 0.0, ts["kernel"], ts["plain"],
                 k * n + k * -(-n // 1024) * 4 + k * n * 4,
-                library_ms=ts["library"], path=path, K=k, N=N, n=n, **extra)
+                library_ms=ts["library"], library_n=N, path=path, K=k, N=N,
+                n=n, **extra)
 
     # wsum_q8: the fused cross-silo merge of M int8 peers
     M = K
@@ -355,7 +360,7 @@ def check_kernels(shape: str, gen, iters: int):
                         sd.unsqueeze(-1))}, iters)
         row("add_q8_delta", 0.0, ts["kernel"], ts["plain"],
             9 * n + -(-n // 1024) * 4, 2.0 * n, library_ms=ts["library"],
-            path=path, N=N, n=n, **extra)
+            library_n=N, path=path, N=N, n=n, **extra)
         del bn
     del base, qd, sd
     torch.cuda.empty_cache()
@@ -534,12 +539,12 @@ def host_path(calls: int = 20000) -> dict:
     many warm-up calls, the queue drained at its end): the current stream's
     raw handle (a ``torch.cuda.Stream`` object built each call against the
     private raw getter that ``_build.stream_of`` reads); the main path's
-    int8 ops calls at n = 62,006 with their kernels bound four ways,
-    ``ctypes.CDLL`` (which releases the GIL around the call) or
-    ``ctypes.PyDLL`` (which keeps it), typed or packed arguments
-    (``_build.Kernel``), in the order ABCD DCBA, each beside its C call
-    alone on fixed arguments; the output allocation and the library call.
-    The binding each wrapper ships is restored."""
+    int8 ops calls at n = 62,006, each twice, beside its C call alone on
+    fixed arguments through its ``_build.Kernel``, the output allocation
+    and the library call. ``dequantize`` passes its ten arguments packed
+    into one int64 array; its C call with typed arguments (``ctypes``
+    converting each) is timed beside it, the bindings in turns."""
+    import ctypes
     from repro_torch.kernels import _build
     x = torch.zeros(1, device="cuda")
 
@@ -559,24 +564,21 @@ def host_path(calls: int = 20000) -> dict:
             "raw_stream_us": per_call(lambda: _build.stream_of(x))}
     if _build.stream_of(x) != torch.cuda.current_stream(x.device).cuda_stream:
         fail("stream_of differs from the current stream")
-    rows = int8_calls(3)
-    bindings = [(False, False), (True, False), (False, True), (True, True)]
-    for name, (call, lib, kname, args, alloc) in rows.items():
+    for name, (call, lib, kname, args, alloc) in int8_calls(3).items():
         k = _build.KERNELS[kname]
-        shipped = (k.keep_gil, k.packed)
+        timings = {"ops call": call, "C call alone": lambda: k(*args)}
+        if k.packed:
+            typed = _build.library()[k.symbol]    # a binding of its own
+            typed.argtypes, typed.restype = k.argtypes, ctypes.c_int
+            if typed(*args) != 0:
+                fail(f"{name}: the typed binding's call failed")
+            timings["C call alone, typed arguments"] = lambda: typed(*args)
         us = {}
-        for keep_gil, packed in bindings + bindings[::-1]:
-            k.keep_gil, k.packed, k._fn = keep_gil, packed, None
-            call()
-            tag = ("PyDLL" if keep_gil else "CDLL") + \
-                (" packed" if packed else " typed")
-            us.setdefault(tag, []).append(per_call(call, calls // 8))
-            us.setdefault(tag + " C call alone", []).append(
-                per_call(lambda: k(*args), calls // 8))
-        k.keep_gil, k.packed, k._fn = (*shipped, None)
+        for _ in range(2):
+            for tag, fn in timings.items():
+                us.setdefault(tag, []).append(per_call(fn, calls // 8))
         line[f"{name}_us"] = {
-            **us, "shipped": ("PyDLL" if shipped[0] else "CDLL") +
-            (" packed" if shipped[1] else " typed"),
+            **us, "binding": "packed" if k.packed else "typed",
             "output allocation": per_call(alloc, calls // 4),
             "library": per_call(lib, calls // 4)}
     print(json.dumps(line), flush=True)
@@ -1077,7 +1079,10 @@ def main() -> int:
                         "max_abs_err": r["max_abs_err"], "ms": r["kernel_ms"],
                         "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
                         "bound_by": r["bound_by"],
-                        "library_ms": r["library_ms"], "check": r["check"]})
+                        "library_ms": r["library_ms"],
+                        "n": r.get("n", r.get("N")),
+                        "library_n": r.get("library_n"),
+                        "check": r["check"]})
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

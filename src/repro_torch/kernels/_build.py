@@ -21,7 +21,7 @@ import shutil
 import subprocess
 import threading
 from pathlib import Path
-from typing import Dict, Sequence
+from typing import Dict, Optional, Sequence
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 SOURCES = ("wsum.cu", "quant.cu", "q8agg.cu", "multikrum.cu", "wkv6.cu")
@@ -32,7 +32,7 @@ BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC")
 
-_libs: Dict[bool, ctypes.CDLL] = {}
+_lib: Optional[ctypes.CDLL] = None
 _lock = threading.Lock()
 
 
@@ -87,19 +87,15 @@ def build() -> Path:
     return out
 
 
-def library(keep_gil: bool = False) -> ctypes.CDLL:
-    """The built library, bound by ``ctypes.CDLL`` (each call releases the
-    GIL and takes it back) or, ``keep_gil``, by ``ctypes.PyDLL`` (the call
-    holds it: for a C function that only enqueues a launch, the release is
-    pure host cost)."""
+def library() -> ctypes.CDLL:
+    global _lib
     with _lock:
-        lib = _libs.get(keep_gil)
-        if lib is None:
-            lib = (ctypes.PyDLL if keep_gil else ctypes.CDLL)(str(build()))
+        if _lib is None:
+            lib = ctypes.CDLL(str(build()))
             lib.repro_error_string.argtypes = [ctypes.c_int]
             lib.repro_error_string.restype = ctypes.c_char_p
-            _libs[keep_gil] = lib
-    return lib
+            _lib = lib
+    return _lib
 
 
 class Kernel:
@@ -108,21 +104,18 @@ class Kernel:
     ``packed``: the library also exports ``<symbol>_packed(const int64_t*)``
     taking the same arguments as one array of int64 (pointers included);
     the call writes them into a buffer of its thread's and passes one
-    pointer, instead of ``ctypes`` converting each typed argument.
-    ``keep_gil``: bound by ``ctypes.PyDLL`` (see ``library``); off, and set
-    only by the measurement in ``chip_smoke.py`` (it measured no faster)."""
+    pointer, instead of ``ctypes`` converting each typed argument."""
 
     def __init__(self, symbol: str, argtypes: Sequence, packed: bool = False):
         self.symbol = symbol
         self.argtypes = list(argtypes)
-        self.keep_gil = False
         self.packed = packed
         self.launches = 0
         self._fn = None
         self._args = threading.local()
 
     def _bind(self):
-        lib = library(self.keep_gil)
+        lib = library()
         if self.packed:
             fn = getattr(lib, self.symbol + "_packed")
             fn.argtypes = [ctypes.c_void_p]           # the int64 array

@@ -94,9 +94,8 @@ __device__ __forceinline__ float4 load_base4(const float* p) {
 // base [>= n] float32 at a BA-byte alignment (16, 8 or 4), codes [>= n]
 // at a QA-byte one (4 or 1; whole 1024-tiles, so a chunk's codes are always
 // there), scales [>= ceil(n / 1024)] -> out [n], 16-byte aligned. Warp w
-// takes chunks w, w + warps, ... of S x 128 elements, kUnroll chunks a
-// step: all their loads, then their FMAs and stores. Only the last chunk
-// masks base loads and stores.
+// takes chunks w, w + warps, ... of S x 128 elements: all their loads, then
+// their FMAs and stores. Only the last chunk masks base loads and stores.
 template <int S, int BA, int QA>
 __global__ void __launch_bounds__(stream::kMaxThreads)
 add_q8_delta_kernel(const float* __restrict__ base,
@@ -104,59 +103,42 @@ add_q8_delta_kernel(const float* __restrict__ base,
                     const float* __restrict__ scales,
                     float* __restrict__ out, int64_t n) {
   using stream::kSpan;
-  using stream::kUnroll;
   using stream::kVec;
   constexpr int kChunk = S * kSpan;
   const int lane = threadIdx.x % 32;
   const int64_t chunks = (n + kChunk - 1) / kChunk;
   const int64_t warps = (int64_t)gridDim.x * blockDim.x / 32;
   for (int64_t c = ((int64_t)blockIdx.x * blockDim.x + threadIdx.x) / 32;
-       c < chunks; c += kUnroll * warps) {
-    unsigned w[kUnroll][S];
-    float4 b[kUnroll][S];
-    float s[kUnroll];
+       c < chunks; c += warps) {
+    unsigned w[S];
+    float4 b[S];
 #pragma unroll
-    for (int u = 0; u < kUnroll; ++u) {
-      const int64_t cu = c + u * warps;
-      if (cu < chunks) {
-#pragma unroll
-        for (int k = 0; k < S; ++k) {
-          const int64_t e = cu * kChunk + k * kSpan + kVec * lane;
-          w[u][k] = stream::load_codes<QA>(q + e);
-          if (e + kVec <= n) {
-            b[u][k] = load_base4<BA>(base + e);
-          } else {
-            b[u][k] = make_float4(e < n ? stream::ld(base + e) : 0.f,
-                                  e + 1 < n ? stream::ld(base + e + 1) : 0.f,
-                                  e + 2 < n ? stream::ld(base + e + 2) : 0.f,
-                                  0.f);
-          }
-        }
-        s[u] = stream::ld(scales + cu * kChunk / stream::kTile);
+    for (int k = 0; k < S; ++k) {
+      const int64_t e = c * kChunk + k * kSpan + kVec * lane;
+      w[k] = stream::load_codes<QA>(q + e);
+      if (e + kVec <= n) {
+        b[k] = load_base4<BA>(base + e);
+      } else {
+        b[k] = make_float4(e < n ? stream::ld(base + e) : 0.f,
+                           e + 1 < n ? stream::ld(base + e + 1) : 0.f,
+                           e + 2 < n ? stream::ld(base + e + 2) : 0.f, 0.f);
       }
     }
+    const float s = stream::ld(scales + c * kChunk / stream::kTile);
 #pragma unroll
-    for (int u = 0; u < kUnroll; ++u) {
-      const int64_t cu = c + u * warps;
-      if (cu < chunks) {
+    for (int k = 0; k < S; ++k) {
+      const int64_t e = c * kChunk + k * kSpan + kVec * lane;
+      const float v[kVec] = {fmaf(stream::code(w[k], 0), s, b[k].x),
+                             fmaf(stream::code(w[k], 1), s, b[k].y),
+                             fmaf(stream::code(w[k], 2), s, b[k].z),
+                             fmaf(stream::code(w[k], 3), s, b[k].w)};
+      if (e + kVec <= n) {
+        stream::st(reinterpret_cast<float4*>(out + e),
+                   make_float4(v[0], v[1], v[2], v[3]));
+      } else {
 #pragma unroll
-        for (int k = 0; k < S; ++k) {
-          const int64_t e = cu * kChunk + k * kSpan + kVec * lane;
-          const unsigned wk = w[u][k];
-          const float4 bk = b[u][k];
-          const float v[kVec] = {fmaf(stream::code(wk, 0), s[u], bk.x),
-                                 fmaf(stream::code(wk, 1), s[u], bk.y),
-                                 fmaf(stream::code(wk, 2), s[u], bk.z),
-                                 fmaf(stream::code(wk, 3), s[u], bk.w)};
-          if (e + kVec <= n) {
-            stream::st(reinterpret_cast<float4*>(out + e),
-                           make_float4(v[0], v[1], v[2], v[3]));
-          } else {
-#pragma unroll
-            for (int j = 0; j < kVec; ++j)
-              if (e + j < n) out[e + j] = v[j];
-          }
-        }
+        for (int j = 0; j < kVec; ++j)
+          if (e + j < n) out[e + j] = v[j];
       }
     }
   }
@@ -167,12 +149,11 @@ cudaError_t launch_add_delta(const float* base, const int8_t* q,
                              const float* s, float* out, int64_t n,
                              cudaStream_t st) {
   constexpr auto kernel = &add_q8_delta_kernel<S, BA, QA>;
+  constexpr int kChunk = S * stream::kSpan;
   dim3 grid;
   int threads;
-  const int64_t chunks = (n + S * stream::kSpan - 1) / (S * stream::kSpan);
   stream::grid_for(reinterpret_cast<const void*>(kernel),
-                   (chunks + stream::kUnroll - 1) / stream::kUnroll * 32, 1,
-                   &grid, &threads);
+                   (n + kChunk - 1) / kChunk * 32, 1, &grid, &threads);
   return stream::launch(kernel, grid, threads, st, base, q, s, out, n);
 }
 
@@ -199,7 +180,7 @@ cudaError_t dispatch_add_delta_b(const float* base, const int8_t* q,
 cudaError_t dispatch_add_delta(const float* base, const int8_t* q,
                                const float* s, float* out, int64_t n,
                                cudaStream_t st) {
-  if (n >= REPRO_ADD_WIDE_MIN)
+  if (n >= stream::kAddWideMin)
     return dispatch_add_delta_b<stream::kWide>(base, q, s, out, n, st);
   return dispatch_add_delta_b<1>(base, q, s, out, n, st);
 }
@@ -302,15 +283,6 @@ int repro_add_q8_delta(const void* base, const void* q, const void* scales,
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const cudaError_t err = dispatch_add_delta(b, c, s, o, n, st);
   return static_cast<int>(err);
-}
-
-// repro_add_q8_delta's arguments in order, each as an int64 (pointers
-// included): one pointer to pass instead of six typed values.
-int repro_add_q8_delta_packed(const int64_t* a) {
-  return repro_add_q8_delta(
-      reinterpret_cast<const void*>(a[0]), reinterpret_cast<const void*>(a[1]),
-      reinterpret_cast<const void*>(a[2]), reinterpret_cast<void*>(a[3]), a[4],
-      reinterpret_cast<void*>(a[5]));
 }
 
 // q: [M, N] int8 (N % 1024 == 0, 1 <= M <= 64); scales: [M, N / 1024];

@@ -87,16 +87,17 @@ __device__ __forceinline__ void store4(__nv_bfloat16* o, const float* v) {
 
 // Row blockIdx.y of codes [K, >= n] (row stride ldq) and scales [K, >= n /
 // 1024] (row stride lds) -> its first n outputs (row stride ldo, 16-byte
-// aligned rows). Warp w takes chunks w, w + warps, ... of S x 128 codes,
-// kUnroll chunks a step: all their loads, then their stores. Codes rows
-// hold whole 1024-tiles, so a chunk's codes are always there; a chunk lies
-// in one tile (one scale), and only a row's last chunk masks stores.
-template <typename T, int S, int QA>
+// aligned rows). Warp w takes chunks w, w + warps, ... of 512 codes: all
+// four of its loads a thread, then the stores. Codes rows hold whole
+// 1024-tiles, so a chunk's codes are always there; a chunk lies in one tile
+// (one scale), and only a row's last chunk masks stores.
+template <typename T, int QA>
 __global__ void __launch_bounds__(stream::kMaxThreads)
 dequantize_kernel(const int8_t* __restrict__ q, int64_t ldq,
                   const float* __restrict__ scales, int64_t lds,
                   T* __restrict__ out, int64_t ldo, int64_t n) {
   using namespace stream;
+  constexpr int S = kWide;
   constexpr int kChunk = S * kSpan;
   q += blockIdx.y * ldq;
   scales += blockIdx.y * lds;
@@ -105,75 +106,51 @@ dequantize_kernel(const int8_t* __restrict__ q, int64_t ldq,
   const int64_t chunks = (n + kChunk - 1) / kChunk;
   const int64_t warps = (int64_t)gridDim.x * blockDim.x / 32;
   for (int64_t c = ((int64_t)blockIdx.x * blockDim.x + threadIdx.x) / 32;
-       c < chunks; c += kUnroll * warps) {
-    unsigned w[kUnroll][S];
-    float s[kUnroll];
+       c < chunks; c += warps) {
+    const int8_t* qc = q + c * kChunk + kVec * lane;
+    unsigned w[S];
 #pragma unroll
-    for (int u = 0; u < kUnroll; ++u) {
-      const int64_t cu = c + u * warps;
-      if (cu < chunks) {
-        const int8_t* qc = q + cu * kChunk + kVec * lane;
+    for (int k = 0; k < S; ++k) w[k] = load_codes<QA>(qc + k * kSpan);
+    const float s = ld(scales + c * kChunk / stream::kTile);
 #pragma unroll
-        for (int k = 0; k < S; ++k) w[u][k] = load_codes<QA>(qc + k * kSpan);
-        s[u] = ld(scales + cu * kChunk / stream::kTile);
-      }
-    }
+    for (int k = 0; k < S; ++k) {
+      const int64_t e = c * kChunk + k * kSpan + kVec * lane;
+      float v[kVec];
 #pragma unroll
-    for (int u = 0; u < kUnroll; ++u) {
-      const int64_t cu = c + u * warps;
-      if (cu < chunks) {
+      for (int j = 0; j < kVec; ++j) v[j] = code(w[k], j) * s;
+      if (e + kVec <= n) {
+        store4(out + e, v);
+      } else {
 #pragma unroll
-        for (int k = 0; k < S; ++k) {
-          const int64_t e = cu * kChunk + k * kSpan + kVec * lane;
-          float v[kVec];
-#pragma unroll
-          for (int j = 0; j < kVec; ++j) v[j] = code(w[u][k], j) * s[u];
-          if (e + kVec <= n) {
-            store4(out + e, v);
-          } else {
-#pragma unroll
-            for (int j = 0; j < kVec; ++j)
-              if (e + j < n) out[e + j] = from_f32<T>(v[j]);
-          }
-        }
+        for (int j = 0; j < kVec; ++j)
+          if (e + j < n) out[e + j] = from_f32<T>(v[j]);
       }
     }
   }
 }
 
-template <typename T, int S, int QA>
+template <typename T, int QA>
 cudaError_t launch_dq(const void* q, int64_t ldq, const float* s, int64_t lds,
                       void* out, int64_t ldo, int K, int64_t n,
                       cudaStream_t st) {
-  constexpr auto kernel = &dequantize_kernel<T, S, QA>;
+  constexpr auto kernel = &dequantize_kernel<T, QA>;
+  constexpr int kChunk = stream::kWide * stream::kSpan;
   dim3 grid;
   int threads;
-  const int64_t chunks = (n + S * stream::kSpan - 1) / (S * stream::kSpan);
   stream::grid_for(reinterpret_cast<const void*>(kernel),
-                   (chunks + stream::kUnroll - 1) / stream::kUnroll * 32, K,
-                   &grid, &threads);
+                   (n + kChunk - 1) / kChunk * 32, K, &grid, &threads);
   return stream::launch(kernel, grid, threads, st,
                         static_cast<const int8_t*>(q), ldq, s, lds,
                         static_cast<T*>(out), ldo, n);
-}
-
-template <typename T, int S>
-cudaError_t dispatch_dq_q(const void* q, int64_t ldq, const float* s,
-                          int64_t lds, void* out, int64_t ldo, int K,
-                          int64_t n, cudaStream_t st) {
-  if (stream::code_align(q, K > 1 ? ldq : 0) == 4)
-    return launch_dq<T, S, 4>(q, ldq, s, lds, out, ldo, K, n, st);
-  return launch_dq<T, S, 1>(q, ldq, s, lds, out, ldo, K, n, st);
 }
 
 template <typename T>
 cudaError_t dispatch_dq(const void* q, int64_t ldq, const float* s,
                         int64_t lds, void* out, int64_t ldo, int K, int64_t n,
                         cudaStream_t st) {
-  if ((int64_t)K * n >= REPRO_DQ_WIDE_MIN)
-    return dispatch_dq_q<T, stream::kWide>(q, ldq, s, lds, out, ldo, K, n,
-                                           st);
-  return dispatch_dq_q<T, 1>(q, ldq, s, lds, out, ldo, K, n, st);
+  if (stream::code_align(q, K > 1 ? ldq : 0) == 4)
+    return launch_dq<T, 4>(q, ldq, s, lds, out, ldo, K, n, st);
+  return launch_dq<T, 1>(q, ldq, s, lds, out, ldo, K, n, st);
 }
 
 }  // namespace

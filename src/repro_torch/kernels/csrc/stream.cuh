@@ -5,37 +5,18 @@
 // (16 contiguous codes a thread, one 16-byte load, reached under half of
 // the bound at N = 2^28: each warp-wide float4 store then writes half
 // sectors spread over 2 KB.) S is 4 (four loads in flight a thread) for
-// dequantize at every size and for add_q8_delta from REPRO_ADD_WIDE_MIN
-// elements on; below that add_q8_delta takes S = 1, so that the paper
-// CNN's 62,006 elements spread over every SM (kernels/tune_stream.py
-// measured each choice at both sizes). A thread issues the loads of
-// kUnroll chunks before their stores, and the grid is sized from the SM
-// count and the blocks an SM holds.
+// dequantize at every size and for add_q8_delta from kAddWideMin elements
+// on; below that add_q8_delta takes S = 1, so that the paper CNN's 62,006
+// elements spread over every SM. The grid is sized from the SM count and
+// the blocks an SM holds.
 //
 // Cache hints: codes (and add_q8_delta's base) are read through the
 // read-only path (ld.global.nc), and outputs go out with st.global.cs
 // (evict first): at 2^28 dequantize runs faster so, and at the paper CNN's
-// size the next kernel, which reads the output, no slower. The macros
-// exist so that kernels/tune_stream.py can build the other choices.
+// size the next kernel, which reads the output, no slower.
 #pragma once
 #include <cuda_runtime.h>
 #include <stdint.h>
-
-#ifndef REPRO_STREAM_NC
-#define REPRO_STREAM_NC 1
-#endif
-#ifndef REPRO_STREAM_CS
-#define REPRO_STREAM_CS 1
-#endif
-#ifndef REPRO_STREAM_UNROLL
-#define REPRO_STREAM_UNROLL 1
-#endif
-#ifndef REPRO_DQ_WIDE_MIN
-#define REPRO_DQ_WIDE_MIN 0
-#endif
-#ifndef REPRO_ADD_WIDE_MIN
-#define REPRO_ADD_WIDE_MIN (int64_t{1} << 20)
-#endif
 
 namespace stream {
 
@@ -43,25 +24,17 @@ constexpr int kTile = 1024;   // codes a scale
 constexpr int kVec = 4;       // elements a thread moves in one access
 constexpr int kSpan = 32 * kVec;   // elements a warp moves in one access
 constexpr int kWide = 4;           // S of a large launch: a chunk of 512
-constexpr int kUnroll = REPRO_STREAM_UNROLL;  // chunks loaded before stored
+constexpr int64_t kAddWideMin = int64_t{1} << 20;  // add_q8_delta's S = 4
 constexpr int kMaxThreads = 256;
 
 template <typename T>
 __device__ __forceinline__ T ld(const T* p) {
-#if REPRO_STREAM_NC
   return __ldg(p);
-#else
-  return *p;
-#endif
 }
 
 template <typename T>
 __device__ __forceinline__ void st(T* p, T v) {
-#if REPRO_STREAM_CS
   __stcs(p, v);
-#else
-  *p = v;
-#endif
 }
 
 // 4 codes from an address aligned to QA bytes (4 or 1).

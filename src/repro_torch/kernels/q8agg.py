@@ -42,7 +42,7 @@ _KERNEL = _build.register(
 _ADD_DELTA = _build.register(
     "add_q8_delta", "repro_add_q8_delta",
     [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-     ctypes.c_int64, ctypes.c_void_p], packed=True)
+     ctypes.c_int64, ctypes.c_void_p])
 _GRAM = _build.register(
     "gram_q8", "repro_gram_q8",
     [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,

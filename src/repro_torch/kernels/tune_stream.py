@@ -1,19 +1,15 @@
-"""Time build variants of the streaming int8 kernels on the card.
+"""Time the streaming int8 kernels against an earlier version's, on the card.
 
   python -m repro_torch.kernels.tune_stream [--parent DIR]   (repo root)
 
-``dequantize`` (``csrc/quant.cu``) and ``add_q8_delta`` (``csrc/q8agg.cu``)
-share ``csrc/stream.cuh``, whose cache hints and unroll depth are macros.
-Each variant builds both sources with other ``-D`` values into a library of
-its own, all in parallel: the read-only path off (``ld.global`` for codes
-and base), plain stores instead of streaming ones (``st.global.cs``), two
-chunks loaded before their stores, and one or four vectors a thread at
-every size. ``--parent DIR`` adds the variant
-"parent": ``DIR/quant.cu`` and ``DIR/q8agg.cu`` (with ``DIR/gram.cuh``)
-of an earlier version, whose kernels write whole 1024-tiles: it gets the
-operands that version's ``ops`` handed it (every column of the payload,
-a base padded to the payload's length). Every variant runs on the same
-inputs and is checked bit for bit against the plain version first:
+Builds ``csrc/quant.cu`` and ``csrc/q8agg.cu`` (``dequantize`` and
+``add_q8_delta``, with ``csrc/stream.cuh``) into a library of their own,
+and with ``--parent DIR`` also ``DIR/quant.cu`` and ``DIR/q8agg.cu`` (with
+``DIR/gram.cuh``) of an earlier version, whose kernels write whole
+1024-tiles: that one gets the operands its ``ops`` handed it (every column
+of the payload, a base padded to the payload's length). Both build in
+parallel, run in one process on the same inputs, and are checked bit for
+bit against the plain version first:
 
 - N = 2^28: ``dequantize`` K = 1 and K = 8, ``add_q8_delta``; CUDA-event
   time (after 50 ms of warm-up calls) beside the memory bound;
@@ -22,7 +18,7 @@ inputs and is checked bit for bit against the plain version first:
   and of the ``gram_and_norms`` that reads its output next (the scoring
   path), and of ``add_q8_delta``.
 
-Prints one JSON line a variant and run, after the card's name and power
+Prints one JSON line a version and run, after the card's name and power
 limit. Needs a CUDA card and ``nvcc``.
 """
 from __future__ import annotations
@@ -42,19 +38,10 @@ from repro_torch.kernels import q8agg, quant  # noqa: F401 (argtypes)
 
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM, NVIDIA data sheet
 MAIN_N, NP, LARGE_N = 62_006, 131_072, 1 << 28
-VARIANTS = {
-    "as_built": [],
-    "no_nc": ["-DREPRO_STREAM_NC=0"],
-    "cs_never": ["-DREPRO_STREAM_CS=0"],
-    "unroll_2": ["-DREPRO_STREAM_UNROLL=2"],
-    "narrow_always": ["-DREPRO_DQ_WIDE_MIN=4611686018427387904LL",
-                      "-DREPRO_ADD_WIDE_MIN=4611686018427387904LL"],
-    "wide_always": ["-DREPRO_ADD_WIDE_MIN=0"],
-}
 
 
-def build(name: str, flags, out_dir: Path, src: Path) -> subprocess.Popen:
-    cmd = [_build._nvcc(), *_build.NVCC_FLAGS, *flags, "-shared", "-o",
+def build(name: str, out_dir: Path, src: Path) -> subprocess.Popen:
+    cmd = [_build._nvcc(), *_build.NVCC_FLAGS, "-shared", "-o",
            str(out_dir / f"{name}.so"), str(src / "quant.cu"),
            str(src / "q8agg.cu")]
     return subprocess.Popen(cmd, stdout=subprocess.PIPE,
@@ -177,10 +164,10 @@ def main(argv=None) -> int:
     print(smi, flush=True)
     out_dir = _build.BUILD_DIR / "tune_stream"
     out_dir.mkdir(parents=True, exist_ok=True)
-    variants = {n: (f, _build.CSRC) for n, f in VARIANTS.items()}
+    versions = {"current": _build.CSRC}
     if args.parent is not None:
-        variants["parent"] = ([], args.parent.resolve())
-    procs = {n: build(n, f, out_dir, src) for n, (f, src) in variants.items()}
+        versions["parent"] = args.parent.resolve()
+    procs = {n: build(n, out_dir, src) for n, src in versions.items()}
     for n, p in procs.items():
         log = p.communicate()[0]
         if p.returncode:
@@ -201,7 +188,7 @@ def main(argv=None) -> int:
     want_dq = ref.dequantize_rows(qm, sm)[:, :MAIN_N]
     want_add = ref.add_q8_delta(bm, qm[0, :MAIN_N], sm[0])
     for run in range(2):
-        for name in variants:
+        for name in versions:
             lib = ctypes.CDLL(str(out_dir / f"{name}.so"))
             dq, add = ((parent_dequantizer, parent_adder) if name == "parent"
                        else (dequantizer, adder))
@@ -212,7 +199,7 @@ def main(argv=None) -> int:
                 raise SystemExit(f"tune_stream: {name} differs from the "
                                  "plain version")
             scoring = device_us(lambda: multikrum.gram_and_norms(main_dq()))
-            line = {"variant": name, "run": run,
+            line = {"version": name, "run": run,
                     "main_dequantize_k1_device_us": device_us(
                         dq(lib, qm[:1], sm[:1], MAIN_N)).get(
                             "dequantize_kernel"),
