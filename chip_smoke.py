@@ -10,7 +10,8 @@ Phases, in order; any failure exits non-zero and prints no result:
   3. check each kernel against its plain version on the card, at the main
      path's shapes (paper CNN: N = 62,006, M or K = 2, M = 3 for the
      MultiKRUM Gram; the int8 kernels off payloads padded to 131,072;
-     ``wkv6``: the serving prefill, B 4, T 64, H 32, hs 64) and at a large
+     ``wkv6``: the two serving prefills, B 4, T 64 and T 1000, H 32, hs 64,
+     also against its sub-chunked arithmetic in PyTorch) and at a large
      shape (N = 2^28; M = 4 for f32 sums, 8 for int8 and the Gram, so M*N
      >= 2^31; ``wkv6``: B 8, T 4096), and time both (CUDA events: kernel,
      plain version and library call in turns, 5 rounds of back-to-back
@@ -37,13 +38,16 @@ Phases, in order; any failure exits non-zero and prints no result:
      every kernel of each path launched, and that the int8 and the
      int8-delta runs agree with the same runs on the CPU (the plain
      versions); then profile one more int8 round and two more int8-delta
-     MultiKRUM rounds (device busy share, top kernels by device time);
+     MultiKRUM rounds (device busy share, top kernels by device time; each
+     Gram call one launch of its kernel);
   5. serve RWKV-6 1.6B (``configs/rwkv6_1_6b.py``: 24 layers, d_model
      2048, 32 heads of 64, vocab 65,536, bf16) at its full width on the
      card through ``repro_torch.launch.serve.serve``, twice (4 x 64 prompt
      + 32 tokens, the reference CLI's defaults; 4 x 1000 + 8), each with the
      launch counts set to 0 just before it: exactly 24 ``wkv6`` launches a
-     prefill and none from decode steps, every logit finite; profile one
+     prefill and none from decode steps, every logit finite, the prefill
+     times beside the token-serial kernel's (``PREFILL_EARLIER_MS``);
+     profile one
      more request; run the CLI entry point once (``main``, 4 x 64 + 4); hold
      the same width at depth 2 against the port on the CPU (prefill logits
      and state, 8 teacher-forced decode steps);
@@ -75,6 +79,8 @@ LARGE_N = 1 << 28
 WSUM_PAD, GRAM_PAD = 4096, 2048   # the padded widths of the earlier rows
 ACC_TOL = 0.05                 # global accuracy, card vs CPU (see phase 4)
 WARM_S = 0.05                  # warm-up before each CUDA-event block
+# prefill of the two serving requests with the token-serial wkv6 kernel
+PREFILL_EARLIER_MS = {"4x64": 56.0, "4x1000": 83.4}
 
 
 def fail(msg: str) -> None:
@@ -372,15 +378,23 @@ def check_kernels(shape: str, gen, iters: int):
     sg = torch.rand((M, N // 1024), generator=gen, device="cuda") * 1e-3 + 1e-4
     # float64 scales: the dequantized models exactly, as the kernel's int8
     # products and scale products stand for them
-    err = check_gram("gram_q8", shape, q8agg.gram_q8(qg, sg),
-                     ref.gram_q8(qg, sg), ref.dequantize_rows(qg, sg.double()))
+    got = launched_once("gram_q8", lambda: q8agg.gram_q8(qg, sg))
+    err = check_gram("gram_q8", shape, got, ref.gram_q8(qg, sg),
+                     ref.dequantize_rows(qg, sg.double()))
+    again = q8agg.gram_q8(qg, sg)
+    if not (torch.equal(again[0], got[0]) and torch.equal(again[1], got[1])):
+        fail(f"gram_q8 {shape}: a rerun gives other bits")
+    del got, again
+    extra = {} if large else {"later": lambda qg=qg, sg=sg: one_kernel_a_call(
+        "gram_q8", lambda: q8agg.gram_q8(qg, sg), "gram_q8_kernel")}
     ts = timed({"kernel": lambda: q8agg.gram_q8(qg, sg),
                 "plain": lambda: ref.gram_q8(qg, sg)}, iters)
     row("gram_q8", err, ts["kernel"], ts["plain"],
         M * N + M * N // 1024 * 4, 2.0 * M * M * N, peak_flops=INT8_OPS,
         check="|G - G_plain| <= sqrt(N) 2^-24 |x_i| |x_j|, sq likewise; "
-        "a quarter of that from float64",
-        M=M, N=N)
+        "a quarter of that from float64; G symmetric, sq its diagonal, "
+        "reruns the same bits; one launch a call",
+        M=M, N=N, **extra)
     del qg, sg
     torch.cuda.empty_cache()
 
@@ -493,24 +507,38 @@ def wkv6_inputs(B: int, T: int, H: int, hs: int, gen):
     return r, k, v, w, u, n(B, H, hs, hs)
 
 
+WKV6_SHAPES = {"main": (4, 64, 32, 64),        # the 4 x 64 serving prefill
+               "long": (4, 1000, 32, 64),      # the 4 x 1000 prefill
+               "large": (8, 4096, 32, 64)}
+
+
 def check_wkv6(shape: str, gen, iters: int) -> dict:
-    """wkv6 against its plain token scan: |dy| <= WKV_REL * max|y| plus one
-    bf16 ulp of |y| (y is bf16: the two may round a float32 value to either
-    side of a bf16 boundary), |dS| <= WKV_REL * max|S| (float32 sums over
-    the key index in another order; the scan itself sits within about 1e-6
-    of float64 at T <= 4096)."""
+    """wkv6 against its plain token scan and against its own sub-chunked
+    arithmetic written out in PyTorch (``ref.wkv6_subchunks``): |dy| <=
+    WKV_REL * max|y| plus one bf16 ulp of |y| (y is bf16: the two may round
+    a float32 value to either side of a bf16 boundary), |dS| <= WKV_REL *
+    max|S| (float32 sums in another order; the scan itself sits within
+    about 1e-6 of float64 at T <= 4096). The row's profile (device time a
+    launch, one launch a call) is deferred to ``finish_rows``."""
     from repro_torch.kernels import ref, rwkv6
-    B, T, H, hs = (8, 4096, 32, 64) if shape == "large" else (4, 64, 32, 64)
+    B, T, H, hs = WKV6_SHAPES[shape]
     args = wkv6_inputs(B, T, H, hs, gen)
-    (y, s), (y0, s0) = rwkv6.wkv6(*args), ref.wkv6_naive(*args)
-    torch.cuda.synchronize()
-    dy = (y.float() - y0.float()).abs()
-    ds = (s - s0).abs()
-    ymax, smax = float(y0.float().abs().max()), float(s0.abs().max())
-    ok = bool((dy <= WKV_REL * ymax + BF16_ULP * y0.float().abs()).all())
-    if not ok or float(ds.max()) > WKV_REL * smax:
-        fail(f"wkv6 {shape}: max |dy| {float(dy.max())} (max|y| {ymax}), "
-             f"max |dS| {float(ds.max())} (max|S| {smax})")
+    y, s = launched_once("wkv6", lambda: rwkv6.wkv6(*args))
+    errs = {}
+    for name, plain in [("scan", ref.wkv6_naive), ("subchunks",
+                                                     ref.wkv6_subchunks)]:
+        y0, s0 = plain(*args)
+        torch.cuda.synchronize()
+        dy = (y.float() - y0.float()).abs()
+        ds = (s - s0).abs()
+        ymax, smax = float(y0.float().abs().max()), float(s0.abs().max())
+        ok = bool((dy <= WKV_REL * ymax + BF16_ULP * y0.float().abs()).all())
+        if not ok or float(ds.max()) > WKV_REL * smax:
+            fail(f"wkv6 {shape} vs {name}: max |dy| {float(dy.max())} "
+                 f"(max|y| {ymax}), max |dS| {float(ds.max())} "
+                 f"(max|S| {smax})")
+        errs[name] = (float(dy.max()), float(ds.max()), ymax, smax)
+        del y0, s0, dy, ds
     if not torch.equal(rwkv6.wkv6(*args)[0], y):
         fail(f"wkv6 {shape}: a rerun gives other bits")
     # the least work a token and head: y = S^T r (2 hs^2) plus the bonus
@@ -518,19 +546,23 @@ def check_wkv6(shape: str, gen, iters: int) -> dict:
     # S <- diag(w) S + k v^T (3 hs^2)
     n = B * T * H * hs
     b_ms, b_by = bound(12 * n + 2 * B * H * hs * hs * 4, (5.0 * hs + 5) * n)
+    dy, ds, ymax, smax = errs["scan"]
     row = {"name": "wkv6", "shape": shape, "path": True, "B": B, "T": T,
-           "H": H, "hs": hs,
-           "max_abs_err": max(float(dy.max()), float(ds.max())),
-           "max_abs_err_y": float(dy.max()), "max_abs_err_state":
-           float(ds.max()), "max_abs_y": ymax, "max_abs_state": smax,
+           "H": H, "hs": hs, "max_abs_err": max(dy, ds),
+           "max_abs_err_y": dy, "max_abs_err_state": ds, "max_abs_y": ymax,
+           "max_abs_state": smax,
+           "max_abs_err_vs_subchunks": max(errs["subchunks"][:2]),
            "check": f"|dy| <= {WKV_REL} max|y| + 2^-7 |y|, "
-                    f"|dS| <= {WKV_REL} max|S|",
+                    f"|dS| <= {WKV_REL} max|S|, against the token scan and "
+                    "the sub-chunked arithmetic; reruns the same bits",
            "kernel_ms": cuda_ms(lambda: rwkv6.wkv6(*args), iters),
            "plain_ms": cuda_ms(lambda: ref.wkv6_naive(*args),
                                max(2, iters // 20), reps=1),
            "library_ms": None, "bound_ms": b_ms, "bound_by": b_by,
            "device": torch.cuda.get_device_name(0)}
-    print(json.dumps(row), flush=True)
+    if shape != "large":
+        row["_later"] = lambda: one_kernel_a_call(
+            f"wkv6 {shape}", lambda: rwkv6.wkv6(*args), "wkv6_kernel")
     return row
 
 
@@ -698,6 +730,7 @@ def profile_rounds(compression: str, scorer: str, rounds: int) -> dict:
     from repro_torch.config import FedConfig
     from repro_torch.configs import get_config
     from repro_torch.core.builder import build_image_experiment
+    from repro_torch.kernels import _build
     fed = FedConfig(n_silos=3, clients_per_silo=2, rounds=rounds, mode="sync",
                     scorer=scorer, agg_policy="top_k", policy_k=2,
                     compression=compression)
@@ -705,12 +738,14 @@ def profile_rounds(compression: str, scorer: str, rounds: int) -> dict:
                                   partition="niid", alpha=0.2, n_train=1500,
                                   n_test=450, seed=0, device="cuda")
     torch.cuda.synchronize()
+    before = _build.launch_counts()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         orch.run(rounds)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
+    launches = _build.launch_counts()
     kern = [e for e in prof.key_averages()
             if e.device_type == torch.autograd.DeviceType.CUDA]
     busy_us = sum(e.self_device_time_total for e in kern)
@@ -719,17 +754,19 @@ def profile_rounds(compression: str, scorer: str, rounds: int) -> dict:
     ported = {}
     for name in ("weighted_sum_kernel", "quantize_kernel",
                  "dequantize_kernel", "wsum_q8_kernel", "add_q8_delta_kernel",
-                 "gram_q8_kernel", "gram_and_norms_kernel", "reduce_partials"):
+                 "gram_q8_kernel", "gram_and_norms_kernel"):
         hits = [e for e in kern if f"::{name}" in e.key]  # not de-quantize
         ported[name] = {"count": sum(e.count for e in hits),
                         "ms": sum(e.self_device_time_total for e in hits)
                         / 1e3}
-    # gram_and_norms is one launch: the second pass is gram_q8's alone
-    if ported["reduce_partials"]["count"] != ported["gram_q8_kernel"]["count"]:
-        fail(f"profile {compression}-{scorer}: {ported['reduce_partials']} "
-             f"reduce_partials launches for {ported['gram_q8_kernel']} "
-             "gram_q8 launches")
+    # each Gram call is one launch of its own kernel, nothing more
+    calls = {k: launches[k] - before[k] for k in ("gram_q8", "gram_and_norms")}
+    for k, n in calls.items():
+        if ported[f"{k}_kernel"]["count"] != n:
+            fail(f"profile {compression}-{scorer}: {ported[k + '_kernel']} "
+                 f"{k}_kernel launches for {n} {k} calls")
     return {"phase": f"profile-{compression}-{scorer}", "rounds": rounds,
+            "gram_calls": calls,
             "wall_s": wall,
             "device_busy_s": busy_us / 1e6,
             "device_idle_share": 1.0 - busy_us / 1e6 / wall,
@@ -925,6 +962,10 @@ def main() -> int:
         print("chip_smoke: no CUDA device visible", file=sys.stderr)
         return 1
     here = os.path.dirname(os.path.abspath(__file__))
+    if not os.path.isdir(os.path.join(here, "src", "repro_torch")):
+        print("chip_smoke: src/repro_torch is not beside this script: run it "
+              "from a checkout of the repository", file=sys.stderr)
+        return 1
     sys.path.insert(0, os.path.join(here, "src"))
     from repro_torch import tree
     from repro_torch.kernels import _build
@@ -951,11 +992,12 @@ def main() -> int:
     before = launch_rate()
     main_rows = check_kernels("main", gen, iters=200)
     finish_rows(check_kernels("large", gen, iters=5))
-    wkv6_row = check_wkv6("main", gen, iters=200)
-    check_wkv6("large", gen, iters=20)
+    wkv6_rows = [check_wkv6("main", gen, iters=200),
+                 check_wkv6("long", gen, iters=50)]
+    finish_rows([check_wkv6("large", gen, iters=20)])
     # every CUDA-event timing is done: now the profiles
-    finish_rows(main_rows)
-    main_rows.append(wkv6_row)
+    finish_rows(main_rows + wkv6_rows)
+    main_rows.append(wkv6_rows[0])
     reconstruct_line()
     print(json.dumps({"phase": "launch-rate", "before_profiler": before,
                       "after_profiler": launch_rate()}), flush=True)
@@ -1035,6 +1077,11 @@ def main() -> int:
                                      device="cuda"), 2, "cuda")   # warm-up
     serving = [serve_request(model, params, 4, 64, 32, seed=10),
                serve_request(model, params, 4, 1000, 8, seed=11)]
+    print(json.dumps({"phase": "serve-prefill-vs-earlier", "prefill_ms": {
+        "4x64": serving[0]["prefill_ms"], "4x1000": serving[1]["prefill_ms"]},
+        "earlier_ms": PREFILL_EARLIER_MS,
+        "earlier": "the token-serial wkv6 kernel, NVIDIA H100 80GB HBM3, "
+                   "700.00 W, chip_smoke.py"}), flush=True)
     print(json.dumps(profile_serving(model, params)), flush=True)
     serve_cli()
     del params

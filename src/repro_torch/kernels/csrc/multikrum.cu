@@ -38,15 +38,13 @@
 //   is M loads and M(M+1)/2 FMAs a column, about 2/8 shared reads an FMA.
 //   Beyond, group pairs share the block's threads (L lanes each).
 // - The ticket. A block sums its lanes by a fixed butterfly and its chunks
-//   in order through shared memory, writes its upper-triangle partial to
-//   scratch, and one thread takes an integer ticket with an acquire-release
-//   atomic add. The last block
-//   sums the partials, lane l over blocks l, l+32, ... in order and then a
-//   fixed butterfly, writes G (both triangles from one sum) and sq (the same
-//   register as G[i, i]), and resets the ticket. No float atomics: G is
-//   exactly symmetric, sq exactly its diagonal, and reruns repeat the bits,
-//   so MultiKRUM picks cannot flicker. The scratch and the ticket belong to
-//   the caller (one stream uses them at a time); offsets are 64-bit.
+//   in order through shared memory and writes its upper-triangle partial to
+//   scratch; gram::finish (gram.cuh, shared with gram_q8) takes an integer
+//   ticket, and the last block sums the partials in a fixed order and writes
+//   G and sq. No float atomics: G is exactly symmetric, sq exactly its
+//   diagonal, and reruns repeat the bits, so MultiKRUM picks cannot
+//   flicker. The scratch and the ticket belong to the caller (one stream
+//   uses them at a time); offsets are 64-bit.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -88,11 +86,6 @@ __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(PENDING) : "memory");
 }
 
-// Index of the pair (i, j >= i) in the row-by-row upper triangle.
-__device__ __forceinline__ int pair_index(int i, int j, int M) {
-  return i * M - i * (i - 1) / 2 + (j - i);
-}
-
 // R rows a group, VW floats a copy. L lanes share a group pair (a power of
 // two, NGP * L <= kThreads); C = 2^csh columns a unit; units of C over N.
 template <int R, int VW>
@@ -103,7 +96,6 @@ __global__ void __launch_bounds__(kThreads)
                           unsigned* __restrict__ ticket,
                           float* __restrict__ out) {
   extern __shared__ __align__(16) float smem[];  // kStages x [M][C]
-  __shared__ bool last;
   const int tid = threadIdx.x;
   const int NG = (M + R - 1) / R;
   const int NGP = NG * (NG + 1) / 2;
@@ -216,51 +208,9 @@ __global__ void __launch_bounds__(kThreads)
     float v = 0.f;
 #pragma unroll 8
     for (int q = 0; q < chunks; ++q) v += src[q * R * R];
-    part[(int64_t)blockIdx.x * P + pair_index(ri, rj, M)] = v;
+    part[(int64_t)blockIdx.x * P + gram::pair_index(ri, rj, M)] = v;
   }
-  // the ticket: after the barrier one acquire-release atomic releases the
-  // whole block's partial (release is cumulative over what the barrier
-  // ordered before it) and, in the last block, acquires everyone else's;
-  // a full fence (__threadfence) around it costs about 0.3 us more each
-  __syncthreads();
-  if (tid == 0) {
-    unsigned t;
-    asm volatile("atom.acq_rel.gpu.global.add.u32 %0, [%1], 1;"
-                 : "=r"(t) : "l"(ticket) : "memory");
-    last = t == gridDim.x - 1;
-  }
-  __syncthreads();
-  if (!last) return;
-
-  // the last block: every pair over the blocks, lane l takes l, l+32, ...
-  // in order, 8 loads in flight at a time
-  const int warp = tid / 32, wl = tid % 32;
-  const int nb = gridDim.x;
-  float* G = out;
-  float* sq = out + M * M;
-  for (int p = warp; p < P; p += kThreads / 32) {
-    float v = 0.f;
-    for (int b0 = wl; b0 < nb; b0 += 32 * 8) {
-      float t[8];
-#pragma unroll
-      for (int k = 0; k < 8; ++k) {
-        const int blk = b0 + 32 * k;
-        t[k] = blk < nb ? __ldcg(part + (int64_t)blk * P + p) : 0.f;
-      }
-#pragma unroll
-      for (int k = 0; k < 8; ++k)
-        if (b0 + 32 * k < nb) v += t[k];
-    }
-    v = gram::lane_sum(v, 32);
-    if (wl == 0) {
-      int i = 0, j = 0;
-      gram::pair_of(p, M, i, j);
-      G[i * M + j] = v;
-      G[j * M + i] = v;
-      if (i == j) sq[i] = v;
-    }
-  }
-  if (tid == 0) *ticket = 0u;
+  gram::finish(part, M, ticket, out);
 }
 
 template <int R, int VW>

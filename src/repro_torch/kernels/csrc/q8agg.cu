@@ -38,10 +38,14 @@
 // reference does, (s_i * s_j) * float(gq), and summed across tiles in f32.
 // Bound: memory, M*N + 4*M*N/1024 bytes for 2*M^2*N integer operations
 // (about M^2/2 dp4a per 4 codes, far below the card's int8 rate at M <= 64).
-// N splits across blocks by whole tiles; a block stages one tile of all M
-// rows in shared memory (16-byte loads), its threads take the M(M+1)/2 row
-// pairs (several lanes a pair when M is small) and dot them with __dp4a,
-// and a second pass sums the blocks' partials in a fixed order (gram.cuh).
+// One launch: each warp takes a contiguous run of tiles and holds a tile's
+// codes of all rows of a group in registers (every code loaded once up to M
+// = 8), the blocks' warps sum in order into a partial a block, and the last
+// block to take the ticket sums the partials in a fixed order (gram.cuh).
+// No shared-memory staging and no ring: a warp's whole tile is in flight at
+// once (8 KB at M = 8), and the SMs hold enough warps to cover the memory
+// latency. Any whole number of 1024-tiles and a row stride (the payload's
+// own width), so ops hands the payloads over unpadded.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -185,70 +189,122 @@ cudaError_t dispatch_add_delta(const float* base, const int8_t* q,
   return dispatch_add_delta_b<1>(base, q, s, out, n, st);
 }
 
-constexpr int kWords = kTile / 4;       // int32 words of codes per row tile
-constexpr int kRowStride = kWords + 1;  // padded: rows fall on other banks
+// gram_q8: one warp sums one 1024-tile at a time. Lane l holds the tile's
+// codes 16 l .. 16 l + 15 and 512 + 16 l .. + 15 (two 16-byte loads a row,
+// each warp-wide load one contiguous 512 bytes), loaded once for all R rows
+// of a row group; the R(R+1)/2 pair products (R*R off the diagonal) are
+// __dp4a sums in int32, summed over the warp with __reduce_add_sync
+// (integer addition: exact in any order), then scaled once, (s_i s_j) *
+// float(g), and added to f32 accumulators in tile order. Up to M = 8 there
+// is one group pair, so every code is loaded once; beyond, groups of 4 rows
+// are taken pair by pair and the codes are read once a group pair.
+constexpr int kGramThreads = 256;
+constexpr int kGramWarps = kGramThreads / 32;
 
-// Pass 1: block b sums its contiguous run of tiles into part[b] ([M, M]).
-__global__ void gram_q8_kernel(const int8_t* __restrict__ q,
-                               const float* __restrict__ scales,
-                               float* __restrict__ part, int M, int64_t N,
-                               int pairs, int L) {
-  extern __shared__ int rows[];  // [M][kRowStride] codes, then [M] scales
-  float* srow = reinterpret_cast<float*>(rows + M * kRowStride);
-  const int64_t tiles = N / kTile;
-  const int64_t per = (tiles + gridDim.x - 1) / gridDim.x;
-  const int64_t t0 = (int64_t)blockIdx.x * per;
-  const int64_t t1 = t0 + per < tiles ? t0 + per : tiles;
-  const int slots = pairs * L;
-  int pi[gram::kMaxSlots], pj[gram::kMaxSlots];
-  float acc[gram::kMaxSlots];
+template <int R>
+__global__ void __launch_bounds__(kGramThreads)
+gram_q8_kernel(const int8_t* __restrict__ q, int64_t ld,
+               const float* __restrict__ scales, int64_t sld, int M,
+               int64_t tiles, float* __restrict__ part,
+               unsigned* __restrict__ ticket, float* __restrict__ out) {
+  __shared__ float red[kGramWarps][R * R];
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int64_t gw = (int64_t)blockIdx.x * kGramWarps + warp;
+  const int64_t nw = (int64_t)gridDim.x * kGramWarps;
+  const int64_t t0 = tiles * gw / nw, t1 = tiles * (gw + 1) / nw;
+  const int NG = (M + R - 1) / R, NGP = NG * (NG + 1) / 2;
+  const int P = M * (M + 1) / 2;
+
+  for (int gp = 0; gp < NGP; ++gp) {
+    int gi = 0, gj = 0;
+    gram::pair_of(gp, NG, gi, gj);
+    const bool diag = R == 8 || gi == gj;  // R = 8: M <= 8, one group
+    float acc[R][R];
 #pragma unroll
-  for (int k = 0; k < gram::kMaxSlots; ++k) {
-    const int slot = threadIdx.x + k * gram::kThreads;
-    pi[k] = pj[k] = 0;
-    acc[k] = 0.f;
-    if (slot < slots) gram::pair_of(slot / L, M, pi[k], pj[k]);
-  }
-  constexpr int kVecs = kTile / 16;      // 16-byte loads per row tile
-  for (int64_t t = t0; t < t1; ++t) {
-    for (int v = threadIdx.x; v < M * kVecs; v += blockDim.x) {
-      const int m = v / kVecs, c = v % kVecs;
-      const int4 w = *reinterpret_cast<const int4*>(
-          q + (int64_t)m * N + t * kTile + 16 * c);
-      int* dst = rows + m * kRowStride + 4 * c;
-      dst[0] = w.x;
-      dst[1] = w.y;
-      dst[2] = w.z;
-      dst[3] = w.w;
-    }
-    for (int m = threadIdx.x; m < M; m += blockDim.x)
-      srow[m] = scales[(int64_t)m * tiles + t];
-    __syncthreads();
+    for (int i = 0; i < R; ++i)
 #pragma unroll
-    for (int k = 0; k < gram::kMaxSlots; ++k) {
-      if (k * gram::kThreads < slots) {  // the same for the whole block
-        const int slot = threadIdx.x + k * gram::kThreads;
-        int g = 0;
-        if (slot < slots) {
-          const int* a = rows + pi[k] * kRowStride;
-          const int* b = rows + pj[k] * kRowStride;
-          for (int w = slot % L; w < kWords; w += L) g = __dp4a(a[w], b[w], g);
+      for (int j = 0; j < R; ++j) acc[i][j] = 0.f;
+
+    for (int64_t t = t0; t < t1; ++t) {
+      const int64_t col = t * kTile + 16 * lane;
+      int4 a[R][2], b[R][2];
+      float sa[R], sb[R];
+#pragma unroll
+      for (int r = 0; r < R; ++r) {
+        const int ra = gi * R + r, rb = gj * R + r;
+        a[r][0] = a[r][1] = b[r][0] = b[r][1] = make_int4(0, 0, 0, 0);
+        sa[r] = sb[r] = 0.f;
+        if (ra < M) {
+          const int8_t* p = q + ra * ld + col;
+          a[r][0] = __ldcs(reinterpret_cast<const int4*>(p));
+          a[r][1] = __ldcs(reinterpret_cast<const int4*>(p + 512));
+          sa[r] = scales[ra * sld + t];
         }
-        if (L > 1) g = gram::lane_sum(g, L);  // exact: int32
-        if (slot < slots) acc[k] += (srow[pi[k]] * srow[pj[k]]) * (float)g;
+        if (!diag && rb < M) {
+          const int8_t* p = q + rb * ld + col;
+          b[r][0] = __ldcs(reinterpret_cast<const int4*>(p));
+          b[r][1] = __ldcs(reinterpret_cast<const int4*>(p + 512));
+          sb[r] = scales[rb * sld + t];
+        }
+      }
+#pragma unroll
+      for (int i = 0; i < R; ++i) {
+#pragma unroll
+        for (int j = 0; j < R; ++j) {
+          if ((diag && j < i) || gi * R + i >= M || gj * R + j >= M)
+            continue;  // the same for the whole warp
+          int g = 0;
+#pragma unroll
+          for (int h = 0; h < 2; ++h) {
+            const int4 x = a[i][h];
+            const int4 z = diag ? a[j][h] : b[j][h];
+            g = __dp4a(x.x, z.x, g);
+            g = __dp4a(x.y, z.y, g);
+            g = __dp4a(x.z, z.z, g);
+            g = __dp4a(x.w, z.w, g);
+          }
+          g = __reduce_add_sync(0xffffffffu, g);
+          acc[i][j] += (sa[i] * (diag ? sa[j] : sb[j])) * (float)g;
+        }
       }
     }
-    __syncthreads();
-  }
-  float* out = part + (int64_t)blockIdx.x * M * M;
+    // the block's warps in order -> this block's partial of the group pair
+    if (lane == 0) {
 #pragma unroll
-  for (int k = 0; k < gram::kMaxSlots; ++k) {
-    const int slot = threadIdx.x + k * gram::kThreads;
-    if (slot < slots && slot % L == 0) {
-      out[pi[k] * M + pj[k]] = acc[k];
-      out[pj[k] * M + pi[k]] = acc[k];
+      for (int i = 0; i < R; ++i)
+#pragma unroll
+        for (int j = 0; j < R; ++j) red[warp][i * R + j] = acc[i][j];
     }
+    __syncthreads();
+    for (int e = threadIdx.x; e < R * R; e += kGramThreads) {
+      const int i = e / R, j = e % R, ri = gi * R + i, rj = gj * R + j;
+      if (ri >= M || rj >= M || (diag && j < i)) continue;
+      float v = 0.f;
+#pragma unroll
+      for (int w = 0; w < kGramWarps; ++w) v += red[w][e];
+      part[(int64_t)blockIdx.x * P + gram::pair_index(ri, rj, M)] = v;
+    }
+    __syncthreads();  // red is free for the next group pair
   }
+  gram::finish(part, M, ticket, out);
+}
+
+template <int R>
+cudaError_t launch_gram(const int8_t* q, int64_t ld, const float* s,
+                        int64_t sld, int M, int64_t tiles, float* part,
+                        int64_t part_floats, unsigned* ticket, float* out,
+                        cudaStream_t st) {
+  auto kernel = gram_q8_kernel<R>;
+  // one warp a tile while that fills the card, else a persistent grid
+  int64_t blocks = (tiles + kGramWarps - 1) / kGramWarps;
+  const int64_t cap = (int64_t)stream::sm_count() *
+                      stream::blocks_per_sm((const void*)kernel, kGramThreads);
+  if (blocks > cap) blocks = cap;
+  const int64_t fit = part_floats / (M * (M + 1) / 2);
+  if (blocks > fit) blocks = fit;
+  if (blocks < 1) return cudaErrorInvalidValue;
+  return stream::launch(kernel, dim3((unsigned)blocks), kGramThreads, st, q,
+                        ld, s, sld, M, tiles, part, ticket, out);
 }
 
 }  // namespace
@@ -285,23 +341,34 @@ int repro_add_q8_delta(const void* base, const void* q, const void* scales,
   return static_cast<int>(err);
 }
 
-// q: [M, N] int8 (N % 1024 == 0, 1 <= M <= 64); scales: [M, N / 1024];
-// part: [blocks, M, M] float32 scratch -> G: [M, M], sq: [M] float32.
-int repro_gram_q8(const void* q, const void* scales, void* part, void* G,
-                  void* sq, int M, int64_t N, int blocks, void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int pairs = M * (M + 1) / 2;
-  const size_t smem = (size_t)M * kRowStride * sizeof(int) + M * sizeof(float);
-  cudaError_t err = gram::allow_smem(gram_q8_kernel, smem);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  gram_q8_kernel<<<blocks, gram::kThreads, smem, s>>>(
-      static_cast<const int8_t*>(q), static_cast<const float*>(scales),
-      static_cast<float*>(part), M, N, pairs, gram::lanes_for(pairs));
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return static_cast<int>(err);
-  return static_cast<int>(gram::launch_reduce(
-      static_cast<const float*>(part), blocks, M, static_cast<float*>(G),
-      static_cast<float*>(sq), s));
+// q: [M, N] int8 with row stride ld (N, ld and the base in whole 1024-tiles
+// and 16-byte aligned, 1 <= M <= 64); scales: [M, N / 1024] float32, row
+// stride sld; part: scratch of part_floats float32 (at least M(M+1)/2; the
+// grid shrinks to fit); ticket: one uint32, 0 between launches; out: M*M + M
+// float32 -> G [M, M] then sq [M].
+int repro_gram_q8(const void* q, int64_t ld, const void* scales, int64_t sld,
+                  int M, int64_t N, void* part, int64_t part_floats,
+                  void* ticket, void* out, void* stream) {
+  if (M < 1 || M > gram::kMaxM || N < kTile || N % kTile || ld % 16 ||
+      reinterpret_cast<uintptr_t>(q) % 16)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int8_t* c = static_cast<const int8_t*>(q);
+  const float* s = static_cast<const float*>(scales);
+  float* pf = static_cast<float*>(part);
+  unsigned* tk = static_cast<unsigned*>(ticket);
+  float* o = static_cast<float*>(out);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const int64_t tiles = N / kTile;
+  cudaError_t err;
+  if (M <= 1)
+    err = launch_gram<1>(c, ld, s, sld, M, tiles, pf, part_floats, tk, o, st);
+  else if (M <= 2)
+    err = launch_gram<2>(c, ld, s, sld, M, tiles, pf, part_floats, tk, o, st);
+  else if (M <= 4 || M > 8)
+    err = launch_gram<4>(c, ld, s, sld, M, tiles, pf, part_floats, tk, o, st);
+  else
+    err = launch_gram<8>(c, ld, s, sld, M, tiles, pf, part_floats, tk, o, st);
+  return static_cast<int>(err);
 }
 
 }  // extern "C"

@@ -35,7 +35,9 @@ _KERNEL = _build.register(
 _SCRATCH: Dict[int, Tuple[torch.Tensor, torch.Tensor]] = {}
 
 
-def _scratch(x, pairs: int):
+def scratch(x, pairs: int):
+    """This device's ticket and partials scratch (``gram_q8`` shares them:
+    the port launches both Gram kernels on one stream)."""
     held = _SCRATCH.get(x.get_device())
     if held is None or held[1].numel() < PART_BLOCKS * pairs:
         ticket = held[0] if held is not None else \
@@ -60,7 +62,7 @@ def gram_and_norms(x):
         raise ValueError(f"gram_and_norms: need f32 [M, N], 1 <= M <= {MAX_M}"
                          ", unit column stride, row stride >= N; got "
                          f"{x.dtype} {tuple(x.shape)} strides {x.stride()}")
-    ticket, part = _scratch(x, M * (M + 1) // 2)
+    ticket, part = scratch(x, M * (M + 1) // 2)
     out = torch.empty(M * M + M, dtype=torch.float32, device=x.device)
     _KERNEL(x.data_ptr(), ld, M, N, part.data_ptr(), part.numel(),
             ticket.data_ptr(), out.data_ptr(), _build.stream_of(x))

@@ -3,8 +3,9 @@
 Twin of ``repro.kernels.ops``, with its padding contract where the bytes
 depend on it: ``quantize`` pads to ``QUANT_BLOCK`` (131072) on every device,
 so wire payloads are byte-identical to the reference's, and the fused int8
-merge and Gram pad to ``q8agg.TILE_N`` and ``QPB`` scales. The other kernels
-take the caller's tensors as they are: the f32 weighted sum and Gram take
+merge pads to ``q8agg.TILE_N`` and ``QPB`` scales. The other kernels take
+the caller's tensors as they are: the int8 Gram takes any whole number of
+1024-tiles, the f32 weighted sum and Gram take
 ``[M, N]`` at any N with a row stride (views included), ``dequantize`` and
 ``dequantize_batch`` write only the ``n`` columns kept (``[n]``, or a
 ``[K, n]`` view with 16-byte aligned rows), and ``add_q8_delta`` takes a
@@ -164,8 +165,10 @@ def add_q8_delta(base, q, scales, n: int = None):
 
 
 def pairwise_dists_q8(q, scales):
-    """Fused dequantize + pairwise squared L2 of quantized models [M, M]."""
-    return _dists(*_q8.gram_q8(*_pad_q8(q, scales)))
+    """Fused dequantize + pairwise squared L2 of quantized models [M, M].
+    q: [M, Np] int8 (Np % QTILE == 0), scales: [M, Np/QTILE], unpadded: the
+    kernel takes any whole number of tiles."""
+    return _dists(*_q8.gram_q8(q, scales))
 
 
 def multikrum_scores_q8(q, scales, m: int):
@@ -204,6 +207,7 @@ def dequantize_batch(q, scales, n, dtype=torch.float32):
 
 def wkv6(r, k, v, w, u, state):
     """r, k, v, w: [B, T, H, hs]; u: [H, hs]; state: [B, H, hs, hs] f32 ->
-    (y [B, T, H, hs] in r.dtype, state' f32). Any T: the kernel steps token
-    by token, so the reference's chunk padding and head folding go away."""
+    (y [B, T, H, hs] in r.dtype, state' f32). Any T: the kernel masks its
+    tail chunk per token, so the reference's chunk padding and head folding
+    go away."""
     return _rwkv.wkv6(r, k, v, w, u, state)

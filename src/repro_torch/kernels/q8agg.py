@@ -13,10 +13,12 @@ caller's base unpadded, at any 4-byte alignment, and writes ``[n]``.
 
 ``gram_q8``: the Gram matrix and row norms of the dequantized models,
 int8 x int8 -> int32 exact per 1024-tile, scaled and summed across tiles in
-f32 (replaces ``q8agg.py:122``). Bound: memory, ``M*N + 4*M*N/1024`` bytes;
-N splits across blocks by whole tiles, ``__dp4a`` dots each row pair, and a
-second pass sums the blocks' partials in a fixed order (no atomics, so the
-MultiKRUM scores repeat exactly).
+f32 (replaces ``q8agg.py:122``). Bound: memory, ``M*N + 4*M*N/1024`` bytes.
+One launch: a warp sums a tile at a time from registers (``__dp4a``, an
+exact int32 warp sum, one scale a tile and pair), and the last block to
+take a ticket sums the blocks' partials in a fixed order (no atomics, so
+the MultiKRUM scores repeat exactly). Any whole number of 1024-tiles, so
+``ops`` hands over the payloads unpadded.
 
 CUDA source: ``csrc/q8agg.cu`` (and ``csrc/gram.cuh``).
 """
@@ -27,13 +29,13 @@ import ctypes
 import torch
 
 from repro_torch.kernels import _build, ref
+from repro_torch.kernels.multikrum import scratch
 from repro_torch.kernels.quant import TILE as QT
 
 QPB = 4               # quant tiles per block of the reference layout
 TILE_N = QPB * QT     # the padding contract of ops._pad_q8 (ops.py:160-176)
 MAX_M = 1024          # folded weights live in shared memory
-GRAM_MAX_M = 64           # gram_q8: row pairs per block (csrc/gram.cuh)
-GRAM_MAX_BLOCKS = 132 * 8  # one wave of 256-thread blocks on 132 SMs
+GRAM_MAX_M = 64       # gram_q8: models (csrc/gram.cuh)
 
 _KERNEL = _build.register(
     "wsum_q8", "repro_wsum_q8",
@@ -45,9 +47,9 @@ _ADD_DELTA = _build.register(
      ctypes.c_int64, ctypes.c_void_p])
 _GRAM = _build.register(
     "gram_q8", "repro_gram_q8",
-    [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-     ctypes.c_void_p, ctypes.c_int, ctypes.c_int64, ctypes.c_int,
-     ctypes.c_void_p])
+    [ctypes.c_void_p, ctypes.c_int64, ctypes.c_void_p, ctypes.c_int64,
+     ctypes.c_int, ctypes.c_int64, ctypes.c_void_p, ctypes.c_int64,
+     ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p])
 
 
 def wsum_q8(q, scales, w):
@@ -103,24 +105,29 @@ def add_q8_delta(base, q, scales, n=None):
 
 
 def gram_q8(q, scales):
-    """q: [M, N] int8 (N % TILE_N == 0, M <= 64); scales: [M, N/QT]
-    -> (G [M, M] f32, sq [M, 1] f32) of the dequantized models."""
+    """q: [M, N] int8 (N % QT == 0, M <= 64, rows may be strided); scales:
+    [M, N/QT] -> (G [M, M] f32, sq [M, 1] f32) of the dequantized models,
+    two views of one allocation."""
     if q.device.type == "cpu":
         return ref.gram_q8(q, scales, QT)
     if q.device.type != "cuda":
         raise ValueError(f"gram_q8: no kernel for device {q.device}")
     M, N = q.shape
-    if q.dtype != torch.int8 or N % TILE_N or not 1 <= M <= GRAM_MAX_M or \
-            tuple(scales.shape) != (M, N // QT):
+    if q.dtype != torch.int8 or N % QT or N == 0 or \
+            not 1 <= M <= GRAM_MAX_M or tuple(scales.shape) != (M, N // QT):
         raise ValueError(f"gram_q8: bad inputs q{tuple(q.shape)} {q.dtype} "
-                         f"scales{tuple(scales.shape)} (N % {TILE_N} == 0, "
+                         f"scales{tuple(scales.shape)} (N % {QT} == 0, "
                          f"1 <= M <= {GRAM_MAX_M})")
-    q = q.contiguous()
-    scales = scales.to(torch.float32).contiguous()
-    blocks = min(N // QT, GRAM_MAX_BLOCKS)
-    part = torch.empty((blocks, M, M), dtype=torch.float32, device=q.device)
-    g = torch.empty((M, M), dtype=torch.float32, device=q.device)
-    sq = torch.empty((M, 1), dtype=torch.float32, device=q.device)
-    _GRAM(_build.ptr(q), _build.ptr(scales), _build.ptr(part), _build.ptr(g),
-          _build.ptr(sq), M, N, blocks, _build.stream_of(q))
-    return g, sq
+    ld = q.stride(0) if M > 1 else N
+    if q.stride(1) != 1 or ld % 16 or q.data_ptr() % 16:
+        q = q.contiguous()
+        ld = N
+    if scales.dtype != torch.float32 or scales.stride(1) != 1:
+        scales = scales.to(torch.float32).contiguous()
+    ticket, part = scratch(q, M * (M + 1) // 2)
+    out = torch.empty(M * M + M, dtype=torch.float32, device=q.device)
+    _GRAM(q.data_ptr(), ld, scales.data_ptr(), scales.stride(0) if M > 1
+          else N // QT, M, N, part.data_ptr(), part.numel(),
+          ticket.data_ptr(), out.data_ptr(), _build.stream_of(q))
+    return (out.as_strided((M, M), (M, 1)),
+            out.as_strided((M, 1), (1, 1), M * M))

@@ -132,3 +132,87 @@ def wkv6_naive(r, k, v, w, u, state):
         ys.append(torch.einsum("bhkv,bhk->bhv", S + uf * kv, rf[:, t]))
         S = S * wf[:, t, :, :, None] + kv
     return torch.stack(ys, dim=1).to(r.dtype), S
+
+
+def wkv6_subchunks(r, k, v, w, u, state, chunk: int = 32, sub: int = 16):
+    """The ``wkv6`` kernel's chunked arithmetic, written out in float32 for
+    the tests (a yardstick of the algorithm, not a path of the port; the
+    plain version is ``wkv6_naive``). Same arguments and results.
+
+    Tokens go in chunks of ``chunk``, each split into sub-chunks of ``sub``.
+    Every decay is a product of ``w`` taken outwards from a sub-chunk
+    boundary (no log, exp or division; every factor in [0, 1]):
+    ``rp_t = r_t * prod(w[start(t) .. t-1])``, ``ks_s = k_s * prod(w[s+1 ..
+    end(s)])``, ``W_c = prod(w over sub-chunk c)``. Within a chunk with
+    incoming state S, for t in sub-chunk a and s < t in sub-chunk b::
+
+      A[t, s] = rp_t . (prod_{b<c<a} W_c) ks_s               (b < a)
+      A[t, s] = sum_i r_t[i] k_s[i] prod(w[s+1 .. t-1])[i]   (b = a, a
+                running product from r_t backwards)
+      A[t, t] = sum_i r_t[i] u[i] k_t[i]
+      y_t     = (rp_t * prod_{c<a} W_c) . S + sum_{s<=t} A[t, s] v_s
+      S      <- diag(prod_c W_c) S + sum_s (ks_s * prod_{c>b} W_c) v_s^T
+
+    A tail chunk is padded with r = k = v = 0 and w = 1, which changes
+    nothing."""
+    B, T, H, hs = r.shape
+    C, nsub = chunk, chunk // sub
+    pad = (-T) % C
+    f = lambda a, fill: torch.cat(
+        [a.to(torch.float32),
+         torch.full((B, pad, H, hs), fill, device=r.device)], 1) \
+        if pad else a.to(torch.float32)
+    # [B, H, Tp, hs]
+    rf, kf, vf = (f(a, 0.0).transpose(1, 2) for a in (r, k, v))
+    wf = f(w, 1.0).transpose(1, 2)
+    uf = u.to(torch.float32)[None, :, :]
+    S = state.to(torch.float32).clone()
+    ys = []
+    for c0 in range(0, T + pad, C):
+        R, K, V, W = (a[:, :, c0:c0 + C] for a in (rf, kf, vf, wf))
+        rp, ks = torch.empty_like(R), torch.empty_like(K)
+        Ws = []
+        for c in range(nsub):
+            P = torch.ones_like(R[:, :, 0])
+            for t in range(c * sub, (c + 1) * sub):
+                rp[:, :, t] = R[:, :, t] * P
+                P = P * W[:, :, t]
+            Ws.append(P)
+            Q = torch.ones_like(K[:, :, 0])
+            for s in reversed(range(c * sub, (c + 1) * sub)):
+                ks[:, :, s] = K[:, :, s] * Q
+                Q = Q * W[:, :, s]
+        A = torch.zeros(B, H, C, C, device=r.device)
+        for a in range(nsub):
+            ta = slice(a * sub, (a + 1) * sub)
+            for b in range(a):
+                mid = torch.ones_like(Ws[0])
+                for c in range(b + 1, a):
+                    mid = mid * Ws[c]
+                A[:, :, ta, b * sub:(b + 1) * sub] = torch.einsum(
+                    "bhti,bhsi->bhts", rp[:, :, ta],
+                    ks[:, :, b * sub:(b + 1) * sub] * mid[:, :, None])
+            # the diagonal sub-chunk: offsets d = t - s, r_t carried back
+            rP = R[:, :, ta].clone()
+            Ka, Wa = K[:, :, ta], W[:, :, ta]
+            for d in range(1, sub):
+                A[:, :, a * sub + d:(a + 1) * sub,
+                  a * sub:(a + 1) * sub - d].diagonal(dim1=2, dim2=3)[:] = \
+                    torch.einsum("bhti,bhti->bht", rP[:, :, d:], Ka[:, :, :-d])
+                rP[:, :, d:] = rP[:, :, d:] * Wa[:, :, :sub - d]
+            A[:, :, ta, ta].diagonal(dim1=2, dim2=3)[:] = torch.einsum(
+                "bhti,bhti->bht", R[:, :, ta] * uf[:, :, None], Ka)
+        rq, kq = rp.clone(), ks.clone()
+        before = torch.ones_like(Ws[0])
+        for c in range(nsub):
+            rq[:, :, c * sub:(c + 1) * sub] *= before[:, :, None]
+            before = before * Ws[c]
+        after = torch.ones_like(Ws[0])
+        for c in reversed(range(nsub)):
+            kq[:, :, c * sub:(c + 1) * sub] *= after[:, :, None]
+            after = after * Ws[c]
+        ys.append(torch.einsum("bhti,bhij->bhtj", rq, S)
+                  + torch.einsum("bhts,bhsj->bhtj", A, V))
+        S = before[..., None] * S + torch.einsum("bhsi,bhsj->bhij", kq, V)
+    y = torch.cat(ys, 2)[:, :, :T].transpose(1, 2)
+    return y.to(r.dtype), S

@@ -2,15 +2,19 @@
 
 Replaces the Pallas kernel ``repro/kernels/rwkv6.py:68`` (``wkv6``), the
 time-mix recurrence of every RWKV-6 prefill. CUDA source: ``csrc/wkv6.cu``.
-Bound on the card: float32 operations at hs = 64 (about ``7*hs^2`` a token
-and head against 12 bytes an element). One block per (batch, head), one
-thread per value column holding its column of the state in registers, the
-tokens staged through shared memory in chunks of 32.
+Bound on the card: float32 operations at hs = 64 (``5*hs^2 + 5*hs`` a
+token and head against 12 bytes an element). One block per (batch, head);
+tokens in chunks of 32, two sub-chunks of 16, every output of a chunk
+computed at once from the chunk's incoming state, and the state stepped
+once a chunk on the tensor cores (three TF32 products a tile, float32
+accuracy); ``ref.wkv6_subchunks`` is the same arithmetic in PyTorch.
 
 The kernel computes the exact recurrence, which the Pallas kernel
 approximates: that one clips each 32-token chunk's cumulative log-decay at
 -25 (``repro/kernels/rwkv6.py:45``) and so departs from it on fast-decaying
-channels. The plain version is ``ref.wkv6_naive``.
+channels. This one forms every decay as a product of ``w`` from a
+sub-chunk boundary (no log, exp or division). The plain version is
+``ref.wkv6_naive``.
 """
 from __future__ import annotations
 
@@ -31,6 +35,13 @@ _KERNEL = _build.register(
 def _rows_strided(t):
     """``t`` itself if its last axis is contiguous, else a contiguous copy."""
     return t if t.stride(-1) == 1 else t.contiguous()
+
+
+def _vec_aligned(t):
+    """The kernel reads 4 elements at a time: strides and base address in
+    whole 4-element vectors (true of any contiguous [B, T, H, hs])."""
+    return all(st % 4 == 0 for st in t.stride()[:3]) and \
+        t.data_ptr() % (4 * t.element_size()) == 0
 
 
 def wkv6(r, k, v, w, u, state):
@@ -55,9 +66,12 @@ def wkv6(r, k, v, w, u, state):
     if any(a.device != r.device for a in (k, v, w, u, state)):
         raise ValueError("wkv6: r, k, v, w, u and state must share a device")
     r, k, v = (_rows_strided(a) for a in (r, k, v))
-    if not (r.stride() == k.stride() == v.stride()):
+    if not (r.stride() == k.stride() == v.stride()) or \
+            not all(_vec_aligned(a) for a in (r, k, v)):
         r, k, v = r.contiguous(), k.contiguous(), v.contiguous()
     w = _rows_strided(w.to(torch.float32))
+    if not _vec_aligned(w):
+        w = w.contiguous()
     u = u.to(torch.float32).contiguous()
     s0 = state.to(torch.float32).contiguous()
     y = torch.empty((B, T, H, hs), dtype=r.dtype, device=r.device)

@@ -470,7 +470,9 @@ def _assert_gram(got, want, x):
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("m,n", [(1, 4096), (3, 131072), (8, 12288),
-                                 (64, 4096), (5, 1024 * 2000)])
+                                 (64, 4096), (5, 1024 * 2000),
+                                 (3, 61 * 1024), (8, 2 ** 20 + 1024),
+                                 (12, 5 * 1024), (1, 1024)])
 def test_gpu_gram_q8(m, n):
     dev = _cuda()
     q, s, _ = _q8_inputs(m, n, m * n)
@@ -479,6 +481,38 @@ def test_gpu_gram_q8(m, n):
     _assert_gram(got, ref.gram_q8(q, s), ref.dequantize_rows(q, s))
     again = q8agg.gram_q8(q, s)          # no atomics: the same bits again
     assert torch.equal(again[0], got[0]) and torch.equal(again[1], got[1])
+
+
+@pytest.mark.gpu
+def test_gpu_gram_q8_launches_once_and_nothing_else():
+    """At the paper CNN's payloads (M 3 x 131,072, and the 61 tiles that
+    hold its 62,006 parameters), a ``gram_q8`` call and an
+    ``ops.pairwise_dists_q8`` call launch ``gram_q8_kernel`` once: no
+    second pass, no pad, no copy; row-strided payloads included."""
+    dev = _cuda()
+    q, s, _ = _q8_inputs(3, 131_072, 17)
+    q, s = q.to(dev), s.to(dev)
+    for call in [lambda: q8agg.gram_q8(q, s),
+                 lambda: q8agg.gram_q8(q[:, :61 * 1024], s[:, :61]),
+                 lambda: ops.pairwise_dists_q8(q[:, :61 * 1024], s[:, :61])]:
+        call()
+        before = _build.launch_counts()
+        with torch.profiler.profile(activities=[
+                torch.profiler.ProfilerActivity.CUDA]) as prof:
+            out = call()
+            torch.cuda.synchronize()
+        after = _build.launch_counts()
+        assert {k: after[k] - before[k] for k in after
+                if after[k] != before[k]} == {"gram_q8": 1}
+        kern = [e for e in prof.key_averages()
+                if e.device_type == torch.autograd.DeviceType.CUDA]
+        grams = [e for e in kern if "gram_q8_kernel" in e.key]
+        assert sum(e.count for e in grams) <= 1
+        if isinstance(out, tuple):    # the wrapper: nothing but the kernel
+            assert len(grams) == len(kern), [e.key for e in kern]
+    want = ref.gram_q8(q[:, :61 * 1024], s[:, :61])
+    got = q8agg.gram_q8(q[:, :61 * 1024], s[:, :61])
+    _assert_gram(got, want, ref.dequantize_rows(q[:, :61 * 1024], s[:, :61]))
 
 
 @pytest.mark.gpu
@@ -598,16 +632,40 @@ def _assert_wkv6(got, want, rel=1e-5):
     assert float((s - s0).abs().max()) <= rel * float(s0.abs().max())
 
 
+def _extreme_decays(w, kind):
+    """w of the model's draw, or: "strong" decays in [0.2, 0.5] (where the
+    Pallas kernel clips); "zero_one" channels at w = 0 and w = 1 exactly;
+    "tiny" w down to 1e-30."""
+    g = torch.Generator().manual_seed(w.shape[1])
+    if kind == "strong":
+        return 0.2 + 0.3 * torch.rand(w.shape, generator=g)
+    if kind == "zero_one":
+        w = w.clone()
+        w[..., :3] = 0.0
+        w[..., 3:6] = 1.0
+        return w
+    if kind == "tiny":
+        return 10.0 ** (-30.0 * torch.rand(w.shape, generator=g))
+    return w
+
+
 @pytest.mark.gpu
-@pytest.mark.parametrize("hs", [16, 64])
-@pytest.mark.parametrize("T", [1, 33, 1000])
+@pytest.mark.parametrize("B,H,hs,T", [(2, 8, 16, 1), (2, 8, 16, 33),
+                                      (2, 8, 16, 1000), (2, 2, 64, 1),
+                                      (2, 2, 64, 33), (2, 2, 64, 1000),
+                                      (4, 32, 64, 64), (4, 32, 64, 1000)])
+@pytest.mark.parametrize("decay", ["model", "strong", "zero_one", "tiny"])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-def test_gpu_wkv6(hs, T, dtype):
+def test_gpu_wkv6(B, H, hs, T, decay, dtype):
+    """The serving head count (B 4, H 32, hs 64 at T 64 and 1000) among
+    them; against the token scan and the kernel's own sub-chunked
+    arithmetic written out in PyTorch."""
     dev = _cuda()
-    args = [a.to(dev) for a in _wkv6_inputs(2, T, 64 // hs * 2, hs, T + hs,
-                                             dtype)]
+    r, k, v, w, u, s0 = _wkv6_inputs(B, T, H, hs, T + hs, dtype)
+    args = [a.to(dev) for a in (r, k, v, _extreme_decays(w, decay), u, s0)]
     got = _launched("wkv6", lambda: rwkv6.wkv6(*args))
     _assert_wkv6(got, ref.wkv6_naive(*args))
+    _assert_wkv6(got, ref.wkv6_subchunks(*args))
     again = rwkv6.wkv6(*args)             # no atomics: the same bits again
     assert torch.equal(again[0], got[0]) and torch.equal(again[1], got[1])
 

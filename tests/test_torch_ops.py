@@ -148,6 +148,38 @@ def test_pairwise_dists_take_unpadded_views(layout):
     assert np.abs(got - want).max() <= 4 * 2.0 ** -16 * sq.max()
 
 
+def test_pairwise_dists_q8_takes_unpadded_payloads(monkeypatch):
+    """N = 61 x 1024 (the paper CNN's 62,006 in whole tiles), not a whole
+    number of the reference's 4096-wide blocks: ops hands the payload to
+    the Gram wrapper as it is (no pad), and the distances match the
+    reference's on the zero-padded payload (zero codes add exactly 0) to
+    4 * 2^-16 of the largest squared norm."""
+    from repro_torch.kernels import q8agg as tq8
+
+    def refuse(*a, **k):
+        raise AssertionError("ops padded an operand")
+
+    seen = []
+    gram = tq8.gram_q8
+    monkeypatch.setattr(tops.F, "pad", refuse)
+    monkeypatch.setattr(tops._q8, "gram_q8",
+                        lambda q, s: seen.append((q, s)) or gram(q, s))
+    m, n = 3, 61 * 1024
+    q, s, _ = _q8(m, n, 61)
+    qt, st = torch.from_numpy(q), torch.from_numpy(s)
+    got = tops.pairwise_dists_q8(qt, st).numpy()
+    assert [(a.data_ptr(), a.shape) for a in seen[0]] == \
+        [(qt.data_ptr(), qt.shape), (st.data_ptr(), st.shape)]
+    qp = np.pad(q, ((0, 0), (0, 3 * 1024)))
+    sp = np.pad(s, ((0, 0), (0, 3)), constant_values=1.0)
+    want = np.asarray(jops.pairwise_dists_q8(jnp.asarray(qp), jnp.asarray(sp)),
+                      np.float64)
+    x = q.astype(np.float64) * np.repeat(s.astype(np.float64), 1024, axis=1)
+    sq = (x ** 2).sum(1)
+    assert got.shape == (m, m)
+    assert np.abs(got - want).max() <= 4 * 2.0 ** -16 * sq.max()
+
+
 @pytest.mark.parametrize("m,np_,n", [(2, 131_072, 62_006), (3, 5120, 5000)])
 def test_weighted_sum_q8_matches(m, np_, n):
     q, s, w = _q8(m, np_, m)

@@ -2,7 +2,12 @@
 against the JAX reference on the same numpy inputs: its token scan
 (``repro.kernels.ref.wkv6_naive``), its Pallas kernel in interpret mode
 (``repro.kernels.ops.wkv6``, as ``tests/test_kernels.py`` runs it) and its
-model's chunked form (``repro.models.rwkv6.wkv_chunked``).
+model's chunked form (``repro.models.rwkv6.wkv_chunked``). The CUDA
+kernel's sub-chunked arithmetic (``ref.wkv6_subchunks``: decays as products
+of w from sub-chunk boundaries, the state stepped once a chunk) is held
+against the same three, and against the token scan at extreme decays
+(w = 0, w = 1, w down to 1e-30) where the Pallas kernel and the chunked
+form, which clip w at 1e-6, are no yardstick.
 
 Tolerances: against the reference's token scan, 1e-5 of max|y| and of
 max|S| (float32 sums in another order); against the Pallas kernel, the
@@ -19,6 +24,7 @@ from repro.kernels import ops as jops
 from repro.kernels import ref as jref
 from repro.models.rwkv6 import wkv_chunked
 from repro_torch.kernels import ops as tops
+from repro_torch.kernels import ref as tref
 
 REL = 1e-5
 PALLAS_TOL = 3e-3
@@ -120,3 +126,85 @@ def test_wkv6_strong_decay_is_exact_where_the_pallas_kernel_clips():
     pallas_y = _jax(jops.wkv6, args)[0]
     assert np.abs(pallas_y - naive[0]).max() > 1.0
     assert np.abs(pallas_y - np.asarray(got[0])).max() > 1.0
+
+
+# --------------------------------------------------------------------------- #
+# The kernel's sub-chunked arithmetic (ref.wkv6_subchunks)
+# --------------------------------------------------------------------------- #
+
+def _sub(args, dtype=torch.float32):
+    r, k, v, w, u, s0 = (torch.from_numpy(a) for a in args)
+    r, k, v = (a.to(dtype) for a in (r, k, v))
+    return tref.wkv6_subchunks(r, k, v, w, u, s0)
+
+
+@pytest.mark.parametrize("B,T,H,hs", SHAPES + [(2, 1, 2, 16),
+                                              (1, 1000, 2, 16)])
+def test_subchunk_form_matches_the_reference_token_scan(B, T, H, hs):
+    args = _inputs(B, T, H, hs, seed=B * T + H + 2)
+    got = _sub(args)
+    assert got[0].shape == (B, T, H, hs) and got[1].shape == (B, H, hs, hs)
+    _assert_close(got, _jax(jref.wkv6_naive, args), REL)
+
+
+@pytest.mark.parametrize("B,T,H,hs", SHAPES)
+def test_subchunk_form_matches_the_pallas_kernel(B, T, H, hs):
+    args = _inputs(B, T, H, hs, seed=B * T + H + 3)
+    for g, w in zip(_sub(args), _jax(jops.wkv6, args)):
+        np.testing.assert_allclose(np.asarray(g), w, rtol=PALLAS_TOL,
+                                   atol=PALLAS_TOL)
+
+
+@pytest.mark.parametrize("B,T,H,hs", [s for s in SHAPES if s[1] % 32 == 0])
+def test_subchunk_form_matches_the_chunked_form(B, T, H, hs):
+    """``wkv_chunked`` takes whole 32-token chunks (its caller pads)."""
+    args = _inputs(B, T, H, hs, seed=B * T + H + 4)
+    _assert_close(_sub(args), _jax(wkv_chunked, args), REL)
+
+
+def test_subchunk_form_is_exact_where_the_pallas_kernel_clips():
+    """The strong-decay inputs of the test above: exact to REL."""
+    args = _inputs(1, 64, 2, 16, seed=0, w_lo=0.2, w_hi=0.5)
+    _assert_close(_sub(args), _jax(jref.wkv6_naive, args), REL)
+
+
+@pytest.mark.parametrize("T", [33, 100])
+def test_subchunk_form_takes_w_of_zero_and_one_exactly(T):
+    """Channels that forget at once (w = 0) and never (w = 1): plain cases
+    of the products, no log of 0 and no special path."""
+    r, k, v, w, u, s0 = _inputs(2, T, 2, 16, seed=T)
+    w[..., :3] = 0.0
+    w[..., 3:6] = 1.0
+    w[0, :, 1, 6] = 0.0                 # one channel of one head and batch
+    args = (r, k, v, w, u, s0)
+    _assert_close(_sub(args), _jax(jref.wkv6_naive, args), REL)
+
+
+def test_subchunk_form_takes_decays_down_to_1e_30():
+    rng = np.random.default_rng(30)
+    r, k, v, _, u, s0 = _inputs(1, 96, 2, 16, seed=31)
+    w = (10.0 ** rng.uniform(-30.0, 0.0, r.shape)).astype(np.float32)
+    args = (r, k, v, w, u, s0)
+    _assert_close(_sub(args), _jax(jref.wkv6_naive, args), REL)
+
+
+def test_subchunk_form_chains_state_across_calls():
+    """[0:T] in one call against [0:40] then [40:T] with the state carried
+    (40 is not a whole number of chunks), and both against the scan."""
+    args = _inputs(2, 100, 2, 16, seed=8)
+    r, k, v, w, u, s0 = (torch.from_numpy(a) for a in args)
+    y1, s1 = tref.wkv6_subchunks(r[:, :40], k[:, :40], v[:, :40],
+                                 w[:, :40], u, s0)
+    y2, s2 = tref.wkv6_subchunks(r[:, 40:], k[:, 40:], v[:, 40:],
+                                 w[:, 40:], u, s1)
+    want = _jax(jref.wkv6_naive, args)
+    _assert_close((torch.cat([y1, y2], 1), s2), want, REL)
+    _assert_close(tref.wkv6_subchunks(r, k, v, w, u, s0), want, REL)
+
+
+def test_subchunk_form_with_bf16_rkv():
+    args = _inputs(2, 70, 2, 16, seed=9)
+    y, s = _sub(args, torch.bfloat16)
+    assert y.dtype == torch.bfloat16
+    _assert_close((y, s), _jax(jref.wkv6_naive, args, jnp.bfloat16), REL,
+                  y_ulps=2.0 ** -7)
