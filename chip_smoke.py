@@ -16,8 +16,9 @@ Phases, in order; any failure exits non-zero and prints no result:
      >= 2^31; ``wkv6``: B 8, T 4096), and time both (CUDA events: kernel,
      plain version and library call in turns, 5 rounds of back-to-back
      calls, each after 50 ms of warm-up calls; the medians) beside
-     the least time the card could take and, where one PyTorch call
-     computes the same function, that call; ``weighted_sum`` and
+     the least time the card could take (for ``wkv6`` also at the rates
+     of the units its chunked form runs on, ``bound_tc_ms``) and, where
+     one PyTorch call computes the same function, that call; ``weighted_sum`` and
      ``gram_and_norms`` also at the padded widths of earlier rows (65,536
      and 63,488) and the Gram on the strided [:, :62,006] view of a
      [3, 131,072] buffer; ``dequantize`` (K = 1 and 2) and ``add_q8_delta``
@@ -69,6 +70,7 @@ import torch
 
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM, NVIDIA data sheet
 F32_FLOPS = 67e12              # H100 SXM float32 outside the tensor cores
+TF32_FLOPS = 495e12            # H100 SXM TF32 tensor-core rate, dense
 INT8_OPS = 1979e12             # H100 SXM int8 tensor-core rate, dense
 GRAM_ULPS = 1.0                # Gram tolerance, sqrt(N) ulps (check_gram)
 WKV_REL = 1e-5                 # wkv6 tolerance, of max|y| and max|S|
@@ -545,7 +547,20 @@ def check_wkv6(shape: str, gen, iters: int) -> dict:
     # v_j * sum_i r_i u_i k_i (5 hs: the sum does not depend on j), and
     # S <- diag(w) S + k v^T (3 hs^2)
     n = B * T * H * hs
-    b_ms, b_by = bound(12 * n + 2 * B * H * hs * hs * 4, (5.0 * hs + 5) * n)
+    nbytes = 12 * n + 2 * B * H * hs * hs * 4
+    b_ms, b_by = bound(nbytes, (5.0 * hs + 5) * n)
+    # the same work on the units the chunked kernel gives it, a token and
+    # head (chunks of C = 32): on the tensor cores, as three TF32 products
+    # each (a third of their rate), y = rq S and the state's kq^T v (2 hs^2
+    # each) and A v over A's causal half ((C + 1) hs); on the CUDA cores
+    # A's dot products ((C - 1) hs), the bonus and the decay products (3 hs
+    # each) and diag(W) S once a chunk (hs^2 / C)
+    C = 32
+    tc_ms = (4.0 * hs * hs + (C + 1) * hs) * B * T * H / (TF32_FLOPS / 3)
+    alu_ms = ((C + 5.0) * hs + hs * hs / C) * B * T * H / F32_FLOPS
+    bytes_ms = nbytes / HBM_BYTES_PER_S
+    b_tc_ms, b_tc_by = ((bytes_ms, "bytes") if bytes_ms >= tc_ms + alu_ms
+                        else (tc_ms + alu_ms, "operations"))
     dy, ds, ymax, smax = errs["scan"]
     row = {"name": "wkv6", "shape": shape, "path": True, "B": B, "T": T,
            "H": H, "hs": hs, "max_abs_err": max(dy, ds),
@@ -559,7 +574,10 @@ def check_wkv6(shape: str, gen, iters: int) -> dict:
            "plain_ms": cuda_ms(lambda: ref.wkv6_naive(*args),
                                max(2, iters // 20), reps=1),
            "library_ms": None, "bound_ms": b_ms, "bound_by": b_by,
+           "bound_tc_ms": b_tc_ms * 1e3, "bound_tc_by": b_tc_by,
            "device": torch.cuda.get_device_name(0)}
+    row["of_bound"] = row["bound_ms"] / row["kernel_ms"]
+    row["of_bound_tc"] = row["bound_tc_ms"] / row["kernel_ms"]
     if shape != "large":
         row["_later"] = lambda: one_kernel_a_call(
             f"wkv6 {shape}", lambda: rwkv6.wkv6(*args), "wkv6_kernel")
@@ -1126,6 +1144,8 @@ def main() -> int:
                         "max_abs_err": r["max_abs_err"], "ms": r["kernel_ms"],
                         "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
                         "bound_by": r["bound_by"],
+                        **({"bound_tc_ms": r["bound_tc_ms"]}
+                           if "bound_tc_ms" in r else {}),
                         "library_ms": r["library_ms"],
                         "n": r.get("n", r.get("N")),
                         "library_n": r.get("library_n"),

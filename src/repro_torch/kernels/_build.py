@@ -21,7 +21,7 @@ import shutil
 import subprocess
 import threading
 from pathlib import Path
-from typing import Dict, Optional, Sequence
+from typing import Dict, Optional, Sequence, Tuple
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 SOURCES = ("wsum.cu", "quant.cu", "q8agg.cu", "multikrum.cu", "wkv6.cu")
@@ -184,3 +184,27 @@ def ptr(t) -> int:
         raise ValueError(f"kernel operand at {p:#x} is not 16-byte aligned "
                          "(pass a fresh or padded tensor, not an offset view)")
     return p
+
+
+GRAM_PART_BLOCKS = 1024   # partials a Gram scratch holds: above any grid
+
+# (device index, raw stream) -> (ticket int32 [1], zeroed once; partials)
+_GRAM_SCRATCH: Dict[Tuple[int, int], tuple] = {}
+
+
+def gram_scratch(t, pairs: int, stream: int) -> tuple:
+    """The integer ticket and the partials scratch that ``gram::finish``
+    (``csrc/gram.cuh``) takes, for ``t``'s device and the raw ``stream``
+    the launch goes on: ``gram_q8`` and ``gram_and_norms`` share one pair
+    on a stream, whose launches run in order, and another stream gets its
+    own, so no two launches in flight race on a ticket. The partials grow
+    to ``GRAM_PART_BLOCKS * pairs`` floats and are not allocated a call."""
+    import torch
+    key = (t.get_device(), stream)
+    held = _GRAM_SCRATCH.get(key)
+    if held is None or held[1].numel() < GRAM_PART_BLOCKS * pairs:
+        ticket = held[0] if held is not None else \
+            torch.zeros(1, dtype=torch.int32, device=t.device)
+        held = _GRAM_SCRATCH[key] = (ticket, torch.empty(
+            GRAM_PART_BLOCKS * pairs, dtype=torch.float32, device=t.device))
+    return held

@@ -223,29 +223,6 @@ __device__ __forceinline__ void diag_rows(const float* R, const float* K,
   }
 }
 
-// Cycles of each phase of the chunk loop, summed over the chunks, for each
-// warp of block 0, when built with -DREPRO_WKV6_PHASES (a measurement of
-// kernels/trace_kernels.py; nothing in the shipped build).
-#ifdef REPRO_WKV6_PHASES
-__device__ long long wkv6_phase_cycles[32 * 8];
-#define PHASES_BEGIN                  \
-  long long phase_sum[8] = {};        \
-  long long phase_mark = clock64()
-#define PHASE(k)                               \
-  {                                            \
-    const long long now = clock64();           \
-    phase_sum[k] += now - phase_mark;          \
-    phase_mark = now;                          \
-  }
-#define PHASES_END                                             \
-  if (blockIdx.x == 0 && lane == 0)                            \
-    for (int k = 0; k < 8; ++k) wkv6_phase_cycles[warp * 8 + k] = phase_sum[k]
-#else
-#define PHASES_BEGIN
-#define PHASE(k)
-#define PHASES_END
-#endif
-
 template <int HS, typename T>
 __global__ void __launch_bounds__(4 * HS, 1) wkv6_kernel(
     const T* __restrict__ r, const T* __restrict__ k, const T* __restrict__ v,
@@ -546,30 +523,20 @@ __global__ void __launch_bounds__(4 * HS, 1) wkv6_kernel(
   prep_a(RQT_(0), KQ_(0), AT_(0), WC_(0));
   __syncthreads();
   prep_b(AT_(0));
-  PHASES_BEGIN;
   for (int c = 0, c0 = 0; c0 < n_tok; ++c, c0 += kC) {
     const bool next = c0 + kC < n_tok;
     __syncthreads();  // chunk c is prepared; R, K, Wt, Yp are free
-    PHASE(0);
     if (next) {
       store_raw(V_(c + 1));
       if (c0 + 2 * kC < n_tok) fetch(c0 + 2 * kC);  // in flight a chunk
     }
-    PHASE(1);
     __syncthreads();
-    PHASE(2);
     if (next) prep_a(RQT_(c + 1), KQ_(c + 1), AT_(c + 1), WC_(c + 1));
-    PHASE(3);
     step(RQT_(c), KQ_(c), AT_(c), WC_(c), V_(c));
-    PHASE(4);
     __syncthreads();  // both halves of y are in Yp; RP1, KS0 are written
-    PHASE(5);
     if (next) prep_b(AT_(c + 1));
-    PHASE(6);
     write_y(c0);
-    PHASE(7);
   }
-  PHASES_END;
 
   float* const p = s1 + (int64_t)bh * HS * HS;
 #pragma unroll
@@ -641,21 +608,6 @@ int repro_wkv6(const void* r, const void* k, const void* v, const void* w,
     err = bf16 ? REPRO_WKV6(16, __nv_bfloat16) : REPRO_WKV6(16, float);
 #undef REPRO_WKV6
   return static_cast<int>(err);
-}
-
-#ifdef REPRO_WKV6_PHASES
-int repro_wkv6_phases(long long* out) {
-  return (int)cudaMemcpyFromSymbol(out, wkv6_phase_cycles,
-                                   sizeof(wkv6_phase_cycles));
-}
-#endif
-
-// Dynamic shared memory a block of wkv6 takes at head size hs (0 for
-// another hs): for reckoning occupancy.
-int repro_wkv6_smem_bytes(int hs) {
-  if (hs == 64) return (int)(Smem<64>::kFloats * sizeof(float));
-  if (hs == 16) return (int)(Smem<16>::kFloats * sizeof(float));
-  return 0;
 }
 
 }  // extern "C"

@@ -10,41 +10,24 @@ ticket sums them in a fixed order.
 
 ``x`` is any ``[M, N]`` float32 with unit column stride and row stride >= N
 (the paper CNN's unpadded stack, or the strided view of a padded dequantize).
-The scratch and the ticket are kept per device and used by one stream at a
-time, which is how the port launches.
+The scratch and the ticket are ``_build.gram_scratch``'s, one pair a device
+and stream, shared with ``gram_q8``.
 """
 from __future__ import annotations
 
 import ctypes
-from typing import Dict, Tuple
 
 import torch
 
 from repro_torch.kernels import _build, ref
 
 MAX_M = 64            # row pairs a block (csrc/multikrum.cu)
-PART_BLOCKS = 1024    # partials the scratch holds: above any grid it launches
 
 _KERNEL = _build.register(
     "gram_and_norms", "repro_gram_and_norms",
     [ctypes.c_void_p, ctypes.c_int64, ctypes.c_int, ctypes.c_int64,
      ctypes.c_void_p, ctypes.c_int64, ctypes.c_void_p, ctypes.c_void_p,
      ctypes.c_void_p])
-
-# device index -> (ticket int32 [1], zeroed once; partials f32, grown)
-_SCRATCH: Dict[int, Tuple[torch.Tensor, torch.Tensor]] = {}
-
-
-def scratch(x, pairs: int):
-    """This device's ticket and partials scratch (``gram_q8`` shares them:
-    the port launches both Gram kernels on one stream)."""
-    held = _SCRATCH.get(x.get_device())
-    if held is None or held[1].numel() < PART_BLOCKS * pairs:
-        ticket = held[0] if held is not None else \
-            torch.zeros(1, dtype=torch.int32, device=x.device)
-        held = _SCRATCH[x.get_device()] = (ticket, torch.empty(
-            PART_BLOCKS * pairs, dtype=torch.float32, device=x.device))
-    return held
 
 
 def gram_and_norms(x):
@@ -62,9 +45,10 @@ def gram_and_norms(x):
         raise ValueError(f"gram_and_norms: need f32 [M, N], 1 <= M <= {MAX_M}"
                          ", unit column stride, row stride >= N; got "
                          f"{x.dtype} {tuple(x.shape)} strides {x.stride()}")
-    ticket, part = scratch(x, M * (M + 1) // 2)
+    stream = _build.stream_of(x)
+    ticket, part = _build.gram_scratch(x, M * (M + 1) // 2, stream)
     out = torch.empty(M * M + M, dtype=torch.float32, device=x.device)
     _KERNEL(x.data_ptr(), ld, M, N, part.data_ptr(), part.numel(),
-            ticket.data_ptr(), out.data_ptr(), _build.stream_of(x))
+            ticket.data_ptr(), out.data_ptr(), stream)
     return (out.as_strided((M, M), (M, 1)),
             out.as_strided((M, 1), (1, 1), M * M))

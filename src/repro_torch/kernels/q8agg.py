@@ -29,7 +29,6 @@ import ctypes
 import torch
 
 from repro_torch.kernels import _build, ref
-from repro_torch.kernels.multikrum import scratch
 from repro_torch.kernels.quant import TILE as QT
 
 QPB = 4               # quant tiles per block of the reference layout
@@ -104,6 +103,18 @@ def add_q8_delta(base, q, scales, n=None):
     return out
 
 
+def gram_rows(q):
+    """``q`` [M, N] and its row stride as ``gram_q8``'s kernel reads them:
+    unit column stride, row stride and base address in whole 16-byte
+    vectors; else a copy in a fresh allocation (``contiguous`` would hand
+    back a contiguous tensor whose base is misaligned as it is)."""
+    M, N = q.shape
+    ld = q.stride(0) if M > 1 else N
+    if q.stride(1) != 1 or ld % 16 or q.data_ptr() % 16:
+        return q.clone(memory_format=torch.contiguous_format), N
+    return q, ld
+
+
 def gram_q8(q, scales):
     """q: [M, N] int8 (N % QT == 0, M <= 64, rows may be strided); scales:
     [M, N/QT] -> (G [M, M] f32, sq [M, 1] f32) of the dequantized models,
@@ -118,16 +129,14 @@ def gram_q8(q, scales):
         raise ValueError(f"gram_q8: bad inputs q{tuple(q.shape)} {q.dtype} "
                          f"scales{tuple(scales.shape)} (N % {QT} == 0, "
                          f"1 <= M <= {GRAM_MAX_M})")
-    ld = q.stride(0) if M > 1 else N
-    if q.stride(1) != 1 or ld % 16 or q.data_ptr() % 16:
-        q = q.contiguous()
-        ld = N
+    q, ld = gram_rows(q)
     if scales.dtype != torch.float32 or scales.stride(1) != 1:
         scales = scales.to(torch.float32).contiguous()
-    ticket, part = scratch(q, M * (M + 1) // 2)
+    stream = _build.stream_of(q)
+    ticket, part = _build.gram_scratch(q, M * (M + 1) // 2, stream)
     out = torch.empty(M * M + M, dtype=torch.float32, device=q.device)
     _GRAM(q.data_ptr(), ld, scales.data_ptr(), scales.stride(0) if M > 1
           else N // QT, M, N, part.data_ptr(), part.numel(),
-          ticket.data_ptr(), out.data_ptr(), _build.stream_of(q))
+          ticket.data_ptr(), out.data_ptr(), stream)
     return (out.as_strided((M, M), (M, 1)),
             out.as_strided((M, 1), (1, 1), M * M))

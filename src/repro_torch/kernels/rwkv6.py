@@ -44,6 +44,26 @@ def _vec_aligned(t):
         t.data_ptr() % (4 * t.element_size()) == 0
 
 
+def _fresh(t):
+    """A contiguous copy in a fresh allocation (``contiguous`` would hand
+    back a contiguous tensor whose base is misaligned as it is)."""
+    return t.clone(memory_format=torch.contiguous_format)
+
+
+def kernel_operands(r, k, v, w):
+    """r, k, v and w (as f32) as the kernel reads them: a contiguous last
+    axis, r, k and v on one set of strides, every stride and base in whole
+    4-element vectors; a fresh copy of what is not."""
+    r, k, v = (_rows_strided(a) for a in (r, k, v))
+    if not (r.stride() == k.stride() == v.stride()) or \
+            not all(_vec_aligned(a) for a in (r, k, v)):
+        r, k, v = _fresh(r), _fresh(k), _fresh(v)
+    w = _rows_strided(w.to(torch.float32))
+    if not _vec_aligned(w):
+        w = _fresh(w)
+    return r, k, v, w
+
+
 def wkv6(r, k, v, w, u, state):
     """r, k, v, w: [B, T, H, hs] (r, k, v f32 or bf16; w f32); u: [H, hs];
     state: [B, H, hs, hs] f32 -> (y [B, T, H, hs] in r.dtype, state' f32)."""
@@ -65,13 +85,7 @@ def wkv6(r, k, v, w, u, state):
                          f"state{tuple(state.shape)}")
     if any(a.device != r.device for a in (k, v, w, u, state)):
         raise ValueError("wkv6: r, k, v, w, u and state must share a device")
-    r, k, v = (_rows_strided(a) for a in (r, k, v))
-    if not (r.stride() == k.stride() == v.stride()) or \
-            not all(_vec_aligned(a) for a in (r, k, v)):
-        r, k, v = r.contiguous(), k.contiguous(), v.contiguous()
-    w = _rows_strided(w.to(torch.float32))
-    if not _vec_aligned(w):
-        w = w.contiguous()
+    r, k, v, w = kernel_operands(r, k, v, w)
     u = u.to(torch.float32).contiguous()
     s0 = state.to(torch.float32).contiguous()
     y = torch.empty((B, T, H, hs), dtype=r.dtype, device=r.device)

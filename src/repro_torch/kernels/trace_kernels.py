@@ -1,38 +1,29 @@
 """Trace ``wkv6`` and ``gram_q8`` on the card: resources, occupancy, scaling.
 
-  python -m repro_torch.kernels.trace_kernels [--parent DIR]   (repo root)
+  python -m repro_torch.kernels.trace_kernels        (from the repo root)
 
-No ``ncu`` on the machine, so four reckonings stand in for it, one JSON
+No ``ncu`` on the machine, so three reckonings stand in for it, one JSON
 line each:
 
 - ``resources``: each kernel's registers, static shared memory and spills,
   read from the built library by ``cuobjdump -res-usage``, and from them
-  and the launch the wrapper makes (threads, dynamic shared memory, grid)
-  the blocks an SM can hold and the warps an SM the grid gives at the
-  measured shapes (the theoretical occupancy; the achieved one cannot be
-  read without ``ncu``);
+  and the threads a block the blocks an SM can hold by registers and by
+  threads (dynamic shared memory is not read here: ``wkv6``'s caps it at
+  one block an SM, which ``wkv6-scaling`` shows as a step at 132 blocks);
 - ``wkv6-scaling``: device time a launch (``torch.profiler``) as the
   (batch, head) blocks grow at a fixed T, and as T grows at the serving
   batch: a kernel that is latency-bound in each block keeps its time while
   blocks fill idle SMs, and takes time in proportion to T;
-- ``wkv6-phases``: the cycles of each phase of ``wkv6``'s chunk loop, from
-  a build with ``-DREPRO_WKV6_PHASES`` (clock64 between the phases);
-- ``gram_q8-scaling``: device time a launch of each kernel it launches at
-  M = 1, 3, 8 and N = 2^28 and at the main shape (M 3, N 131,072): time
-  that grows with the M(M+1)/2 row pairs rather than with the M*N bytes
-  is shared-memory or issue bound, not memory bound.
+- ``gram_q8-scaling``: device time a launch at M = 1, 3, 8 and N = 2^28
+  and at the main shape (M 3, N 131,072): time that grows with the
+  M(M+1)/2 row pairs rather than with the M*N bytes is shared-memory or
+  issue bound, not memory bound.
 
-With ``--parent DIR`` the ``wkv6.cu`` and ``q8agg.cu`` of an earlier
-version (with its headers, from ``git archive <commit>
-src/repro_torch/kernels/csrc`` unpacked under ``build/``) are built beside
-the current ones and traced in the same process, on the same inputs. Every
-kernel is checked against its plain version first. Needs a CUDA card and
-``nvcc``.
+Every kernel is checked against its plain version first. Needs a CUDA card
+and ``nvcc``.
 """
 from __future__ import annotations
 
-import argparse
-import ctypes
 import json
 import re
 import subprocess
@@ -43,18 +34,17 @@ import torch
 
 from repro_torch.kernels import _build, q8agg, ref, rwkv6
 
-SMS, SM_SMEM, SM_REGS, SM_WARPS, SM_BLOCKS = 132, 233_472, 65_536, 64, 32
+SMS, SM_REGS, SM_WARPS, SM_BLOCKS = 132, 65_536, 64, 32
 LARGE_N = 1 << 28
-
-
-def cuobjdump() -> str:
-    return str(Path(_build._nvcc()).with_name("cuobjdump"))
+THREADS = {"wkv6_kernelILi64E": 256, "wkv6_kernelILi16E": 64,
+           "gram_q8_kernel": 256}   # a block, as the wrappers launch them
 
 
 def resources(lib: Path) -> dict:
     """kernel (mangled name) -> registers, static shared bytes, local
     (spill) bytes, from ``cuobjdump -res-usage``."""
-    out = subprocess.run([cuobjdump(), "-res-usage", str(lib)],
+    tool = str(Path(_build._nvcc()).with_name("cuobjdump"))
+    out = subprocess.run([tool, "-res-usage", str(lib)],
                          capture_output=True, text=True, check=True).stdout
     res, name = {}, None
     for line in out.splitlines():
@@ -70,27 +60,17 @@ def resources(lib: Path) -> dict:
     return res
 
 
-def occupancy(regs: int, static_smem: int, threads: int, dyn_smem: int,
-              blocks: int, persistent: bool = False) -> dict:
-    """Blocks an SM can hold (registers at 256 a warp granule, shared memory
-    with 1 KB reserved a block, threads, the block cap) and what the grid
-    puts on the card (a persistent grid: at most what the card holds)."""
+def occupancy(regs: int, threads: int) -> dict:
+    """Blocks an SM can hold by registers (256 a warp granule), by threads
+    and by the block cap, and the warps that gives."""
     warps = -(-threads // 32)
     warp_regs = -(-max(regs, 1) * 32 // 256) * 256
     by = {"regs": SM_REGS // warp_regs // warps,
-          "shared": SM_SMEM // (static_smem + dyn_smem + 1024),
           "threads": SM_WARPS // warps, "cap": SM_BLOCKS}
     per_sm = min(by.values())
-    grid = min(blocks, per_sm * SMS) if persistent else blocks
-    resident = min(grid, per_sm * SMS)
-    return {"threads": threads, "dyn_smem": dyn_smem, "grid": grid,
-            "blocks_per_sm_max": per_sm,
+    return {"threads": threads, "blocks_per_sm_max": per_sm,
             "limited_by": min(by, key=by.get),
-            "warps_per_sm_max": per_sm * warps,
-            "theoretical_occupancy": per_sm * warps / SM_WARPS,
-            "sms_busy": min(grid, SMS),
-            "warps_per_busy_sm": resident * warps / min(grid, SMS),
-            "waves": grid / (per_sm * SMS)}
+            "warps_per_sm_max": per_sm * warps}
 
 
 def device_us(call, calls: int = 20) -> dict:
@@ -109,115 +89,6 @@ def device_us(call, calls: int = 20) -> dict:
             if e.device_type == torch.autograd.DeviceType.CUDA and e.count}
 
 
-def build_parent(src: Path, out: Path) -> Path:
-    lib = out / "parent.so"
-    cmd = [_build._nvcc(), *_build.NVCC_FLAGS, "-shared", "-o", str(lib),
-           str(src / "wkv6.cu"), str(src / "q8agg.cu")]
-    p = subprocess.run(cmd, capture_output=True, text=True)
-    if p.returncode:
-        raise SystemExit(f"trace_kernels: the parent failed to build:\n"
-                         f"{p.stdout}{p.stderr}")
-    return lib
-
-
-class Version:
-    """A library's ``wkv6`` and ``gram_q8`` behind the current wrappers'
-    signatures (the parent's ``gram_q8`` took scratch partials and ran a
-    second pass, ``reduce_partials``)."""
-
-    def __init__(self, name: str, lib: Path):
-        self.name, self.path = name, lib
-        self.lib = ctypes.CDLL(str(lib))
-        self.parent = name == "parent"
-
-    def wkv6(self, *args):
-        if self.name == "current":
-            return rwkv6.wkv6(*args)
-        k = _build.Kernel("repro_wkv6", rwkv6._KERNEL.argtypes)
-        k._fn = getattr(self.lib, "repro_wkv6")
-        k._fn.argtypes, k._fn.restype = k.argtypes, ctypes.c_int
-        held, rwkv6._KERNEL = rwkv6._KERNEL, k
-        try:
-            return rwkv6.wkv6(*args)
-        finally:
-            rwkv6._KERNEL = held
-
-    def gram_q8(self, q, s):
-        if not self.parent:
-            return q8agg.gram_q8(q, s)
-        fn = self.lib.repro_gram_q8
-        fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int, ctypes.c_int64,
-                                               ctypes.c_int, ctypes.c_void_p]
-        M, N = q.shape
-        blocks = min(N // 1024, SMS * 8)
-        part = torch.empty((blocks, M, M), device=q.device)
-        g = torch.empty((M, M), device=q.device)
-        sq = torch.empty((M, 1), device=q.device)
-        if fn(q.data_ptr(), s.data_ptr(), part.data_ptr(), g.data_ptr(),
-              sq.data_ptr(), M, N, blocks, _build.stream_of(q)):
-            raise RuntimeError("parent gram_q8 failed")
-        return g, sq
-
-
-PHASES = ("wait for chunk c's preparation", "store chunk c+1, load c+2",
-          "barrier after the store", "prepare chunk c+1 (products of w, "
-          "A inside sub-chunks)", "state step of chunk c", "barrier after "
-          "the step", "prepare chunk c+1 (A across sub-chunks, bonus)",
-          "write y of chunk c")
-
-
-def wkv6_phases(out: Path, gen, dev: str) -> None:
-    """``csrc/wkv6.cu`` built with -DREPRO_WKV6_PHASES: the cycles (the
-    SM's clock64) of each phase of the chunk loop, a chunk, for warps 0
-    and the last of block 0, at the three measured shapes."""
-    lib = out / "phases.so"
-    cmd = [_build._nvcc(), *_build.NVCC_FLAGS, "-DREPRO_WKV6_PHASES",
-           "-shared", "-o", str(lib), str(_build.CSRC / "wkv6.cu")]
-    subprocess.run(cmd, check=True, capture_output=True)
-    v = Version("phases", lib)
-    for B, T in [(4, 64), (4, 1000), (8, 4096)]:
-        a = wkv6_inputs(B, T, 32, 64, gen)
-        v.wkv6(*a)
-        torch.cuda.synchronize()
-        buf = (ctypes.c_longlong * (32 * 8))()
-        if v.lib.repro_wkv6_phases(buf):
-            raise RuntimeError("repro_wkv6_phases failed")
-        chunks = -(-T // 32)
-        for w in (0, 7):
-            cyc = [buf[w * 8 + k] / chunks for k in range(8)]
-            print(json.dumps({"phase": "wkv6-phases", "B": B, "T": T,
-                              "warp": w, "cycles_per_chunk": sum(cyc),
-                              "by_phase": dict(zip(PHASES, cyc)),
-                              "device": dev}), flush=True)
-
-
-def launches(version: str, kernel: str, shape: dict):
-    """The launch each version's wrapper makes for ``shape`` from the kernel
-    instance ``kernel`` (a mangled name), or None where the wrapper would
-    launch another instance."""
-    if "wkv6_kernel" in kernel:
-        hs = 64 if "ILi64E" in kernel else 16
-        if hs != shape.get("hs", 64):
-            return None
-        if version == "parent":
-            return {"threads": hs, "dyn_smem": 0, "blocks": shape["B"] *
-                    shape["H"]}
-        smem = _build.library().repro_wkv6_smem_bytes(hs)
-        return {"threads": 4 * hs, "dyn_smem": smem,
-                "blocks": shape["B"] * shape["H"]}
-    M, N = shape["M"], shape["N"]
-    if "reduce_partials" in kernel:
-        return {"threads": 256, "dyn_smem": 0, "blocks": -(-M * M // 256)}
-    if version == "parent":
-        return {"threads": 256, "dyn_smem": M * 257 * 4 + M * 4,
-                "blocks": min(N // 1024, SMS * 8)}
-    R = 1 if M <= 1 else 2 if M <= 2 else 4 if M <= 4 or M > 8 else 8
-    if f"gram_q8_kernelILi{R}E" not in kernel:
-        return None
-    return {"threads": 256, "dyn_smem": 0, "blocks": -(-N // 1024 // 8),
-            "persistent": True}
-
-
 def wkv6_inputs(B, T, H, hs, gen):
     n = lambda *s: torch.randn(s, generator=gen, device="cuda")
     r, k, v = (n(B, T, H, hs).to(torch.bfloat16) for _ in range(3))
@@ -228,11 +99,10 @@ def wkv6_inputs(B, T, H, hs, gen):
 
 
 def main(argv=None) -> int:
-    ap = argparse.ArgumentParser(prog="python -m repro_torch.kernels."
-                                 "trace_kernels")
-    ap.add_argument("--parent", type=Path, default=None,
-                    help="csrc directory of an earlier version to trace too")
-    args = ap.parse_args(argv)
+    if argv:
+        print(f"trace_kernels: takes no arguments, got {argv}",
+              file=sys.stderr)
+        return 2
     if not torch.cuda.is_available():
         print("trace_kernels: no CUDA device visible", file=sys.stderr)
         return 1
@@ -240,86 +110,55 @@ def main(argv=None) -> int:
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=True).stdout.strip()
     print(smi, flush=True)
-    versions = [Version("current", _build.build())]
-    if args.parent is not None:
-        out = _build.BUILD_DIR / "trace"
-        out.mkdir(parents=True, exist_ok=True)
-        versions.append(Version("parent", build_parent(args.parent.resolve(),
-                                                       out)))
     gen = torch.Generator(device="cuda").manual_seed(0)
     dev = torch.cuda.get_device_name(0)
 
-    shapes = {"wkv6": [{"B": 4, "T": 64, "H": 32},
-                       {"B": 4, "T": 1000, "H": 32},
-                       {"B": 8, "T": 4096, "H": 32}],
-              "gram_q8": [{"M": 3, "N": 131_072}, {"M": 8, "N": LARGE_N}]}
-    for v in versions:
-        res = resources(v.path)
-        for mangled, r in sorted(res.items()):
-            kern = next((k for k in ("wkv6_kernel", "gram_q8_kernel",
-                                     "reduce_partials") if k in mangled), None)
-            if kern is None:
-                continue
-            family = "wkv6" if kern.startswith("wkv6") else "gram_q8"
-            occ = []
-            for shape in shapes[family]:
-                launch = launches(v.name, mangled, shape)
-                if launch is not None:
-                    occ.append(dict(shape, **occupancy(
-                        r["regs"], r["shared"], **launch)))
-            print(json.dumps({"phase": "resources", "version": v.name,
-                              "kernel": mangled, **r, "at": occ,
+    for mangled, r in sorted(resources(_build.build()).items()):
+        threads = next((t for k, t in THREADS.items() if k in mangled), None)
+        if threads is not None:
+            print(json.dumps({"phase": "resources", "kernel": mangled, **r,
+                              **occupancy(r["regs"], threads),
                               "device": dev}), flush=True)
 
-    hs = 64
-    for v in versions:
-        # latency against parallelism: T fixed, (batch, head) blocks grow
-        for B, T in [(1, 1024), (4, 1024), (8, 1024), (16, 1024),
-                     (32, 1024), (4, 64), (4, 256), (4, 1000), (4, 4096),
-                     (8, 4096)]:
-            a = wkv6_inputs(B, T, 32, hs, gen)
-            y, s = v.wkv6(*a)
-            if B * T <= 4 * 1024:
-                y0, s0 = ref.wkv6_naive(*a)
-                err = float((s - s0).abs().max()) / float(s0.abs().max())
-                if not err <= 1e-5:
-                    raise SystemExit(f"trace_kernels: {v.name} wkv6 B{B} "
-                                     f"T{T}: state off by {err} of max|S|")
-            us = device_us(lambda: v.wkv6(*a), 20 if B * T < 8192 else 5)
-            print(json.dumps({"phase": "wkv6-scaling", "version": v.name,
-                              "B": B, "T": T, "H": 32, "hs": hs,
-                              "blocks": B * 32, "device_us": us,
-                              "us_per_token": sum(us.values()) / T,
-                              "device": dev}), flush=True)
-            del a, y, s
-        torch.cuda.empty_cache()
-
-    wkv6_phases(_build.BUILD_DIR, gen, dev)
+    # latency against parallelism: T fixed, (batch, head) blocks grow
+    for B, T in [(1, 1024), (4, 1024), (8, 1024), (16, 1024), (32, 1024),
+                 (4, 64), (4, 256), (4, 1000), (4, 4096), (8, 4096)]:
+        a = wkv6_inputs(B, T, 32, 64, gen)
+        y, s = rwkv6.wkv6(*a)
+        if B * T <= 4 * 1024:
+            y0, s0 = ref.wkv6_naive(*a)
+            err = float((s - s0).abs().max()) / float(s0.abs().max())
+            if not err <= 1e-5:
+                raise SystemExit(f"trace_kernels: wkv6 B{B} T{T}: state off "
+                                 f"by {err} of max|S|")
+        us = device_us(lambda: rwkv6.wkv6(*a), 20 if B * T < 8192 else 5)
+        print(json.dumps({"phase": "wkv6-scaling", "B": B, "T": T, "H": 32,
+                          "hs": 64, "blocks": B * 32, "device_us": us,
+                          "us_per_token": sum(us.values()) / T,
+                          "device": dev}), flush=True)
+        del a, y, s
+    torch.cuda.empty_cache()
 
     for M, N in [(3, 131_072), (1, LARGE_N), (3, LARGE_N), (8, LARGE_N)]:
         q = torch.randint(-127, 128, (M, N), generator=gen, device="cuda",
                           dtype=torch.int8)
         s = torch.rand((M, N // 1024), generator=gen, device="cuda") * 1e-3
-        x = ref.dequantize_rows(q, s.double()) if N < LARGE_N else None
-        for v in versions:
-            g, sq = v.gram_q8(q, s)
-            if x is not None:
-                g64 = x @ x.T
-                tol = 2.0 ** -20 * float(g64.diagonal().max())
-                if float((g.double() - g64).abs().max()) > tol:
-                    raise SystemExit(f"trace_kernels: {v.name} gram_q8 "
-                                     f"M{M} N{N} off")
-            us = device_us(lambda: v.gram_q8(q, s), 20 if N < LARGE_N else 5)
-            nbytes = M * N + 4 * M * N // 1024
-            print(json.dumps({"phase": "gram_q8-scaling", "version": v.name,
-                              "M": M, "N": N, "pairs": M * (M + 1) // 2,
-                              "device_us": us, "bound_us":
-                              nbytes / 3.35e12 * 1e6, "device": dev}),
-                  flush=True)
-        del q, s, x
+        g, sq = q8agg.gram_q8(q, s)
+        if N < LARGE_N:
+            g64 = (lambda x: x @ x.T)(ref.dequantize_rows(q, s.double()))
+            tol = 2.0 ** -20 * float(g64.diagonal().max())
+            if float((g.double() - g64).abs().max()) > tol:
+                raise SystemExit(f"trace_kernels: gram_q8 M{M} N{N} off")
+        us = device_us(lambda: q8agg.gram_q8(q, s), 20 if N < LARGE_N else 5)
+        nbytes = M * N + 4 * M * N // 1024
+        print(json.dumps({"phase": "gram_q8-scaling", "M": M, "N": N,
+                          "pairs": M * (M + 1) // 2, "device_us": us,
+                          "bound_us": nbytes / 3.35e12 * 1e6,
+                          "device": dev}), flush=True)
+        del q, s, g, sq
         torch.cuda.empty_cache()
     return 0
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(main(sys.argv[1:]))

@@ -250,6 +250,63 @@ def test_weighted_sum_ordered_rounds_each_fma_once():
         assert acc.tobytes() == got[n].numpy().tobytes(), n
 
 
+@pytest.mark.parametrize("offset,ld", [(0, 2048), (16, 2048), (1, 2048),
+                                       (0, 2056), (0, 2049)])
+def test_gram_rows_copies_only_what_the_kernel_cannot_read(offset, ld):
+    """``gram_q8``'s operand: rows at a 16-byte base and row stride pass as
+    they are; a contiguous view at a misaligned base gets a fresh aligned
+    copy (``contiguous`` would return the view itself), a row stride off
+    16 bytes a contiguous one."""
+    M, N = 3, 2048
+    flat = torch.from_numpy(np.random.default_rng(5).integers(
+        -127, 128, offset + M * ld).astype(np.int8))
+    q = flat[offset:].view(M, ld)[:, :N]
+    got, got_ld = q8agg.gram_rows(q)
+    assert torch.equal(got, q)
+    assert got.data_ptr() % 16 == 0 and got_ld % 16 == 0
+    assert got.stride() == (got_ld, 1)
+    kept = offset % 16 == 0 and ld % 16 == 0
+    assert (got.data_ptr() == q.data_ptr()) == kept
+    assert got_ld == (ld if kept else N)
+
+
+@pytest.mark.parametrize("offset", [0, 1, 4])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_wkv6_operands_copy_only_what_the_kernel_cannot_read(offset, dtype):
+    """``wkv6``'s operands at a base off a 4-element vector get a fresh
+    aligned copy (a contiguous view would come back as it is from
+    ``contiguous``); aligned ones pass as they are."""
+    inputs = _wkv6_inputs(2, 5, 3, 16, 7, dtype)[:4]
+
+    def at_offset(t):
+        flat = torch.zeros(offset + t.numel(), dtype=t.dtype)
+        flat[offset:] = t.reshape(-1)
+        return flat[offset:].view(t.shape)
+
+    views = [at_offset(t) for t in inputs]
+    for got, view, want in zip(rwkv6.kernel_operands(*views), views, inputs):
+        assert torch.equal(got, want)
+        assert got.data_ptr() % (4 * got.element_size()) == 0
+        assert all(st % 4 == 0 for st in got.stride()[:3])
+        assert (got.data_ptr() == view.data_ptr()) == (offset % 4 == 0)
+
+
+def test_gram_scratch_is_one_pair_a_device_and_stream(monkeypatch):
+    """The Gram kernels' ticket and partials: one pair for each (device,
+    stream), grown in place of the partials, never shared across streams."""
+    monkeypatch.setattr(_build, "_GRAM_SCRATCH", {})
+    x = torch.zeros(1)
+    ticket, part = _build.gram_scratch(x, 3, 11)
+    assert ticket.dtype == torch.int32 and int(ticket) == 0
+    assert part.numel() == 3 * _build.GRAM_PART_BLOCKS
+    assert _build.gram_scratch(x, 1, 11)[1] is part
+    other = _build.gram_scratch(x, 3, 12)
+    assert other[0] is not ticket and other[1] is not part
+    grown = _build.gram_scratch(x, 6, 11)
+    assert grown[0] is ticket
+    assert grown[1].numel() == 6 * _build.GRAM_PART_BLOCKS
+
+
 # --------------------------------------------------------------------------- #
 # GPU: each CUDA kernel against its plain version on the card
 # --------------------------------------------------------------------------- #
@@ -681,6 +738,31 @@ def test_gpu_wkv6_reads_strided_inputs():
     assert rs.stride() != r.stride()
     got = _launched("wkv6", lambda: rwkv6.wkv6(rs, ks, vs, w, u, s0))
     _assert_wkv6(got, ref.wkv6_naive(r, k, v, w, u, s0))
+
+
+@pytest.mark.gpu
+def test_gpu_kernels_take_contiguous_views_at_a_misaligned_base():
+    """Contiguous operands one element off an aligned base (views of a flat
+    buffer): ``wkv6`` and ``gram_q8`` copy them to a fresh allocation and
+    give the plain versions' numbers, where the C checks would refuse."""
+    dev = _cuda()
+
+    def shifted(t):
+        flat = torch.empty(t.numel() + 1, dtype=t.dtype, device=dev)
+        flat[1:] = t.reshape(-1)
+        return flat[1:].view(t.shape)
+
+    args = [a.to(dev) for a in _wkv6_inputs(2, 40, 4, 64, 6, torch.bfloat16)]
+    views = [shifted(a) for a in args[:4]] + args[4:]
+    assert all(a.is_contiguous() and a.data_ptr() % 8 for a in views[:4])
+    got = _launched("wkv6", lambda: rwkv6.wkv6(*views))
+    _assert_wkv6(got, ref.wkv6_naive(*args))
+    q, s, _ = _q8_inputs(3, 8192, 8)
+    q, s = q.to(dev), s.to(dev)
+    qv = shifted(q)
+    assert qv.is_contiguous() and qv.data_ptr() % 16
+    got = _launched("gram_q8", lambda: q8agg.gram_q8(qv, s))
+    _assert_gram(got, ref.gram_q8(q, s), ref.dequantize_rows(q, s))
 
 
 @pytest.mark.gpu
