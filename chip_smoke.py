@@ -24,7 +24,9 @@ Phases, in order; any failure exits non-zero and prints no result:
      [3, 131,072] buffer; ``dequantize`` (K = 1 and 2) and ``add_q8_delta``
      through ``ops`` at the n = 62,006 columns the main path keeps (the
      kernels line's rows) and at the whole payload (the padded rows of
-     earlier PRs), each failing on a second kernel launch a call; then, all
+     earlier PRs), each failing on a second kernel launch a call;
+     ``quantize`` and ``wsum_q8`` likewise through ``ops`` at n = 62,006
+     (``ops.quantize`` pads with ``F.pad`` first); then, all
      timings done, each main-shape row's device time a launch from
      ``torch.profiler`` (which leaves a cost on every later launch: the
      ``launch-rate`` line times the int8 ops calls before the first
@@ -41,7 +43,23 @@ Phases, in order; any failure exits non-zero and prints no result:
      versions); then profile one more int8 round and two more int8-delta
      MultiKRUM rounds (device busy share, top kernels by device time; each
      Gram call one launch of its kernel);
-  5. serve RWKV-6 1.6B (``configs/rwkv6_1_6b.py``: 24 layers, d_model
+  5. the Async engine and the WAN fabric, each run with the launch counts
+     set to 0 just before it: ``async-int8-delta-wan``, 3 Async rounds of
+     int8-delta over ``wan-heterogeneous`` (gossip, prefetch) with a
+     straggler and silo1 killed in round 2 and restarted from its WAL in
+     round 3, every silo at time_scale 0 (its wall time, heights, round
+     marks with WAN and chain bytes, recovery counters, convergence, the
+     decoded models on the card; ``quantize``, ``dequantize``,
+     ``add_q8_delta``, ``wsum_q8`` and ``weighted_sum`` launched), the same
+     run on the CPU (rounds and recovery equal; picks, heights and bytes
+     printed beside it: CIDs reach the chain's hash tie-breaks), the same
+     Async run without the fabric on both (picks, height and submission
+     times equal, accuracy within ACC_TOL), a profiled Async WAN run;
+     ``sync-multikrum-wan`` (4 silos over ``lan``, a partition in round 2
+     healed in round 3: the Gram kernels behind fabric fetches, one state
+     after the heal); ``sync-vs-async-straggler`` (the reference's
+     straggler test on the card, in simulated seconds);
+  6. serve RWKV-6 1.6B (``configs/rwkv6_1_6b.py``: 24 layers, d_model
      2048, 32 heads of 64, vocab 65,536, bf16) at its full width on the
      card through ``repro_torch.launch.serve.serve``, twice (4 x 64 prompt
      + 32 tokens, the reference CLI's defaults; 4 x 1000 + 8), each with the
@@ -52,7 +70,9 @@ Phases, in order; any failure exits non-zero and prints no result:
      more request; run the CLI entry point once (``main``, 4 x 64 + 4); hold
      the same width at depth 2 against the port on the CPU (prefill logits
      and state, 8 teacher-forced decode steps);
-  6. print the ``kernels`` JSON line, then the result line.
+  7. print the ``kernels`` JSON line (all nine TPU kernels' counterparts,
+     with their launches on the main path and on the Async WAN and
+     MultiKRUM WAN paths), then the result line.
 
 The card's peak rates are the published H100 SXM figures; a card capped
 below 700 W runs slower, which is why its power limit is printed beside the
@@ -67,7 +87,9 @@ import sys
 import time
 
 import torch
+import torch.nn.functional as F
 
+HERE = os.path.dirname(os.path.abspath(__file__))
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM, NVIDIA data sheet
 F32_FLOPS = 67e12              # H100 SXM float32 outside the tensor cores
 TF32_FLOPS = 495e12            # H100 SXM TF32 tensor-core rate, dense
@@ -143,12 +165,19 @@ def device_time(fn, calls: int = 50) -> dict:
             break
     else:
         fail("the profiler saw no kernel in three tries")
+    short = lambda e: e.key.split("<")[0].split("::")[-1].split("(")[0]
+    by_kernel = {}
+    for e in kern:
+        k = by_kernel.setdefault(short(e), [0, 0.0])
+        k[0] += e.count
+        k[1] += e.self_device_time_total
     return {"device_us_per_launch": sum(e.self_device_time_total
                                         for e in kern) / launches,
             "launches_seen_per_call": launches / calls,
-            "device_kernels": sorted(
-                e.key.split("<")[0].split("::")[-1].split("(")[0]
-                for e in kern)}
+            "device_kernels": sorted(short(e) for e in kern),
+            "by_kernel": {k: {"launches_per_call": c / calls,
+                              "us_per_launch": us / c}
+                          for k, (c, us) in sorted(by_kernel.items())}}
 
 
 def bound(nbytes: float, flops: float = 0.0, peak_flops: float = F32_FLOPS):
@@ -192,6 +221,21 @@ def one_kernel_a_call(name: str, call, kernel: str) -> dict:
             not k.startswith(kernel) for k in extra["device_kernels"]):
         fail(f"{name}: {extra}, want one {kernel} a call")
     return extra
+
+
+def ops_call_profile(name: str, call, kernel: str) -> dict:
+    """Device time of an ``ops`` call that may launch PyTorch's own kernels
+    beside ours (``ops.quantize`` pads with ``F.pad``): the device time a
+    call in all, and ``kernel``'s own a launch; fails unless ``kernel``
+    runs exactly once a call."""
+    extra = device_time(call)
+    own = {k: v for k, v in extra["by_kernel"].items() if k.startswith(kernel)}
+    if [v["launches_per_call"] for v in own.values()] != [1.0]:
+        fail(f"{name}: {extra}, want one {kernel} a call")
+    return {**extra,
+            "device_us_per_call": extra["device_us_per_launch"]
+            * extra["launches_seen_per_call"],
+            "device_us_per_launch": next(iter(own.values()))["us_per_launch"]}
 
 
 def check_kernels(shape: str, gen, iters: int):
@@ -273,8 +317,29 @@ def check_kernels(shape: str, gen, iters: int):
              f"version ({int((q != q0).sum())} codes)")
     ts = timed({"kernel": lambda: quant.quantize(xq),
                 "plain": lambda: ref.quantize_int8(xq)}, iters)
+    extra = {} if large else {"later": lambda xq=xq: one_kernel_a_call(
+        "quantize", lambda: quant.quantize(xq), "quantize_kernel")}
     row("quantize", 0.0, ts["kernel"], ts["plain"],
-        N * 4 + N + N // 1024 * 4, N=N)
+        N * 4 + N + N // 1024 * 4, path=large, N=N, **extra)
+    if not large:
+        # the main path's call (wire.encode_vec): ops.quantize pads the
+        # n = 62,006 floats of a flattened model to the 131,072 of the wire
+        # payload (F.pad), then launches the kernel
+        xm = xq[:MAIN_N].clone()
+        call = lambda xm=xm: ops.quantize(xm)
+        plain = lambda xm=xm: ref.quantize_int8(F.pad(xm, (0, N - MAIN_N)))
+        (q, s, n), (q0, s0) = launched_once("quantize", call), plain()
+        torch.cuda.synchronize()
+        if not (n == MAIN_N and torch.equal(q, q0) and torch.equal(s, s0)):
+            fail("quantize through ops at n=62,006: codes or scales differ "
+                 "from the plain version")
+        ts = timed({"kernel": call, "plain": plain}, iters)
+        row("quantize", 0.0, ts["kernel"], ts["plain"],
+            MAIN_N * 4 + N + N // 1024 * 4, N=N, n=MAIN_N,
+            check="bit-exact codes and scales; through ops (F.pad, then "
+                  "one quantize_kernel a call)",
+            later=lambda call=call: ops_call_profile(
+                "quantize through ops", call, "quantize_kernel"))
 
     # dequantize: K payloads in one launch (scoring ingest, K=2; K=8 large)
     K = 8 if large else 2
@@ -332,10 +397,33 @@ def check_kernels(shape: str, gen, iters: int):
     del got, want
     ts = timed({"kernel": lambda: q8agg.wsum_q8(qk, sk, wq),
                 "plain": lambda: ref.wsum_q8(qk, sk, wq)}, iters)
+    tol = f"abs err <= M*2^-22*127*max sum w s = {M * 2.0 ** -22 * scale:.3e}"
+    extra = {} if large else {"later": lambda qk=qk, sk=sk, wq=wq:
+                              one_kernel_a_call(
+                                  "wsum_q8", lambda: q8agg.wsum_q8(qk, sk, wq),
+                                  "wsum_q8_kernel")}
     row("wsum_q8", err, ts["kernel"], ts["plain"],
-        M * N + M * N // 1024 * 4 + N * 4, 2.0 * M * N,
-        check=f"abs err <= M*2^-22*127*max sum w s = {M * 2.0 ** -22 * scale:.3e}",
-        M=M, N=N)
+        M * N + M * N // 1024 * 4 + N * 4, 2.0 * M * N, check=tol,
+        path=large, M=M, N=N, **extra)
+    if not large:
+        # the main path's call (SiloAggregator.apply_cross_silo_vec): the
+        # merge of M int8 peers through ops, the n = 62,006 columns kept
+        call = lambda qk=qk, sk=sk, wq=wq: ops.weighted_sum_q8(qk, sk, wq,
+                                                               MAIN_N)
+        plain = lambda qk=qk, sk=sk, wq=wq: ref.wsum_q8(qk, sk, wq)[:MAIN_N]
+        got, want = launched_once("wsum_q8", call), plain()
+        torch.cuda.synchronize()
+        err = float((got - want).abs().max())
+        if got.shape != (MAIN_N,) or not err <= M * 2.0 ** -22 * scale:
+            fail(f"wsum_q8 through ops at n=62,006: shape "
+                 f"{tuple(got.shape)}, max_abs_err {err}")
+        del got, want
+        ts = timed({"kernel": call, "plain": plain}, iters)
+        row("wsum_q8", err, ts["kernel"], ts["plain"],
+            M * N + M * N // 1024 * 4 + MAIN_N * 4, 2.0 * M * N,
+            check=tol + "; through ops", M=M, N=N, n=MAIN_N,
+            later=lambda call=call: ops_call_profile(
+                "wsum_q8 through ops", call, "wsum_q8_kernel"))
     del qk, sk
     torch.cuda.empty_cache()
 
@@ -814,7 +902,320 @@ def check_against_cpu(name: str, orch, ge, cpu_run) -> None:
 
 
 # --------------------------------------------------------------------------- #
-# Phase 5: serving RWKV-6 1.6B
+# Phase 5: the Async engine and the WAN fabric
+# --------------------------------------------------------------------------- #
+
+# each silo's training window in simulated seconds (time_scale 0 charges no
+# host compute, so runs on the card and the CPU see one clock), the last
+# silo a straggler by 2.0 s; silo1 is killed in round 2 and restarted in 3
+ASYNC_DELAYS = (2.0, 2.0, 4.0)
+KILL_NODE = "silo1"
+
+
+def async_run(device: str, *, net: bool = True, faults: bool = True,
+              rounds: int = 3, profiler=None):
+    """Async UnifyFL with int8-delta: 3 silos x 2 clients, top-2, paper CNN
+    at its published width, every silo at time_scale 0. ``net``: over
+    ``wan-heterogeneous`` with gossip (factor 1) and prefetch, a WAL
+    directory under ``build/``, and with ``faults`` the kill and restart of
+    KILL_NODE; without ``net``, the single-replica ledger. Runs the
+    simulated clock dry after ``run`` (gossip and prefetch in flight; their
+    decodes launch kernels too). Returns (orch, global accuracy, run wall
+    seconds, drain wall seconds)."""
+    import shutil
+    from repro_torch.config import FaultScenario, FedConfig, NetConfig
+    from repro_torch.configs import get_config
+    from repro_torch.core.builder import (SiloSpec, build_image_experiment,
+                                          global_eval)
+    netcfg = None
+    if net:
+        wal = os.path.join(HERE, "build", "chip_smoke_wal", device)
+        shutil.rmtree(wal, ignore_errors=True)
+        scenarios = (FaultScenario(action="kill", node=KILL_NODE, round=2,
+                                   when="train"),
+                     FaultScenario(action="restart", node=KILL_NODE, round=3,
+                                   when="train")) if faults else ()
+        netcfg = NetConfig(preset="wan-heterogeneous", replication_factor=1,
+                           prefetch=True, scenarios=scenarios, wal_dir=wal)
+    fed = FedConfig(n_silos=3, clients_per_silo=2, rounds=rounds,
+                    mode="async", scorer="accuracy", agg_policy="top_k",
+                    policy_k=2, compression="int8-delta", net=netcfg)
+    orch = build_image_experiment(
+        get_config("paper-cnn"), fed, partition="niid", alpha=0.2,
+        n_train=1500, n_test=450, seed=0, device=device,
+        silo_specs=[SiloSpec(extra_train_delay=d) for d in ASYNC_DELAYS])
+    for s in orch.silos:
+        s.time_scale = 0.0
+    sync = torch.cuda.synchronize if device == "cuda" else (lambda: None)
+    sync()
+    t0 = time.perf_counter()
+    orch.run(rounds)
+    sync()
+    wall = time.perf_counter() - t0
+    orch.env.run()
+    sync()
+    return orch, global_eval(orch), wall, time.perf_counter() - t0 - wall
+
+
+def async_summary(orch, ge) -> dict:
+    """What an Async run did: rounds, picks, simulated submission times,
+    heights, round marks with WAN and chain bytes, the chain's recovery
+    counters and convergence, prefetch and fetch-stall figures."""
+    s0 = orch.silos
+    out = {"rounds_done": [s.rounds_done for s in s0],
+           "picks": [[p["owners"] for p in s.pick_log] for s in s0],
+           "submit_t": [[m["t"] for m in s.metrics] for s in s0],
+           "ledger_height": orch.ledger.height,
+           "sim_end_s": orch.env.now,
+           "global_accuracy": {k: v["accuracy"] for k, v in ge.items()}}
+    if orch.chain is None:
+        return out
+    chain = orch.chain
+    marks = orch.round_log
+    store = [m["wan_bytes"] - m["chain_bytes"] for m in marks]
+    out.update({
+        "chain_heights": {n: r.height for n, r in chain.replicas.items()},
+        "round_log": [{k: m[k] for k in ("round", "silo", "t", "wan_bytes",
+                                         "chain_bytes")} for m in marks],
+        "store_wan_bytes_per_mark": [b - a for a, b in zip([0] + store,
+                                                           store)],
+        "wan_bytes": orch.fabric.stats["bytes"],
+        "chain_bytes": orch.fabric.stats["chain_bytes"],
+        "fetch_stall_s": sum(s.store.stats["fetch_time"] for s in s0),
+        "prefetch": orch.prefetcher.hit_stats() if orch.prefetcher else None,
+        "forks_observed": chain.totals("forks_observed"),
+        "reorgs": chain.totals("reorgs"),
+        **{k: chain.stats[k] for k in ("kills", "restarts", "wal_replayed",
+                                       "restart_fabric_bytes")},
+        "converged": chain.converged(),
+        "state_digests": len(set(chain.state_digests().values())),
+        "replicas_verify": all(r.verify() for r in chain.replicas.values())})
+    return out
+
+
+def check_chain(name: str, summ: dict, *, faults: bool) -> None:
+    """The invariants the reference's recovery and chain tests assert."""
+    if not (summ["converged"] and summ["state_digests"] == 1
+            and summ["replicas_verify"]):
+        fail(f"{name}: replicas did not converge to one verified state "
+             f"({summ['converged']}, {summ['state_digests']} digests)")
+    if faults and not (summ["kills"] == summ["restarts"] == 1
+                       and summ["wal_replayed"] > 0
+                       and summ["restart_fabric_bytes"] == 0):
+        fail(f"{name}: kill/restart counters {summ['kills']}, "
+             f"{summ['restarts']}, wal_replayed {summ['wal_replayed']}, "
+             f"restart_fabric_bytes {summ['restart_fabric_bytes']}")
+
+
+def decoded_on_card(orch) -> int:
+    """Decoded models held by the silos' stores, failing on any that is not
+    a tensor on the card (prefetch and gossip decodes included)."""
+    held = 0
+    for s in orch.silos:
+        for dm in s.store._decoded.values():
+            for t in (dm.q, dm.scales, dm._vec):
+                if t is not None and t.device.type != "cuda":
+                    fail(f"{s.silo_id}: a decoded model lives on {t.device}")
+            held += 1
+    return held
+
+
+def async_wan_phase(tree) -> dict:
+    """``async-int8-delta-wan``: the Async path over the WAN fabric on the
+    card with the launch counts set to 0 just before it; the same run on the
+    CPU; the same run without the fabric on both (strict parity)."""
+    from repro_torch.kernels import _build
+    _build.reset_launches()
+    orch, ge, wall, drain = async_run("cuda")
+    launches = _build.launch_counts()
+    summ = async_summary(orch, ge)
+    line = {"phase": "async-int8-delta-wan", "rounds": 3,
+            "delays_s": ASYNC_DELAYS, "kill_restart": KILL_NODE,
+            "wall_s": wall, "drain_wall_s": drain, "launches": launches,
+            "decoded_models_on_card": decoded_on_card(orch), **summ}
+    print(json.dumps(line), flush=True)
+    if not orch.ledger.verify() or summ["rounds_done"] != [3, 3, 3]:
+        fail(f"async wan run: ledger or rounds {summ['rounds_done']}")
+    check_chain("async wan run", summ, faults=True)
+    for s in orch.silos:
+        if any(t.device.type != "cuda" for t in tree.leaves(s.cluster.params)):
+            fail(f"async wan run, {s.silo_id}: params left the card")
+    missing = [k for k in ("weighted_sum", "quantize", "dequantize",
+                           "add_q8_delta", "wsum_q8") if launches[k] == 0]
+    if missing:
+        fail(f"async wan run never launched {missing}")
+
+    # the same run on the CPU. CIDs differ from the card's by float rounding
+    # and fall into the chain's smallest-head-hash tie-breaks, which decide
+    # when a score reaches a replica; so the picks, heights and bytes are
+    # printed side by side, and the run is held to what no tie can move
+    cpu, cpu_ge, cpu_wall, _ = async_run("cpu")
+    ref = async_summary(cpu, cpu_ge)
+    check_chain("async wan run on the CPU", ref, faults=True)
+    same = {k: summ[k] == ref[k] for k in
+            ("picks", "submit_t", "ledger_height", "chain_heights",
+             "store_wan_bytes_per_mark", "wan_bytes", "chain_bytes")}
+    acc = {sid: [v, ref["global_accuracy"][sid]]
+           for sid, v in summ["global_accuracy"].items()}
+    cross = {"phase": "async-int8-delta-wan-cross-check-cpu",
+             "cpu_wall_s": cpu_wall, "equal": same,
+             "cpu": {k: ref[k] for k in same}, "global_accuracy": acc}
+    print(json.dumps(cross), flush=True)
+    if ref["rounds_done"] != summ["rounds_done"] or any(
+            ref[k] != summ[k] for k in ("kills", "restarts",
+                                        "restart_fabric_bytes")):
+        fail("async wan run: rounds or kill/restart differ from the CPU run")
+    for sid, (a, b) in acc.items():
+        if not 0.0 <= a <= 1.0 or (same["picks"] and abs(a - b) > ACC_TOL):
+            fail(f"async wan run, {sid}: global accuracy {a} on the card vs "
+                 f"{b} on the CPU (picks equal: {same['picks']})")
+
+    # without the fabric no CID reaches a tie-break: strict parity
+    runs = {dev: async_run(dev, net=False) for dev in ("cuda", "cpu")}
+    (o_c, ge_c, wall_c, _), (o_h, ge_h, _, _) = runs["cuda"], runs["cpu"]
+    a, b = async_summary(o_c, ge_c), async_summary(o_h, ge_h)
+    print(json.dumps({"phase": "async-int8-delta-ledger", "wall_s": wall_c,
+                      **a, "cpu_global_accuracy": b["global_accuracy"]}),
+          flush=True)
+    for k in ("rounds_done", "picks", "submit_t", "ledger_height"):
+        if a[k] != b[k]:
+            fail(f"async ledger run: {k} {a[k]} on the card, {b[k]} on the "
+                 "CPU")
+    if not any(p for ps in a["picks"] for p in ps):
+        fail("async ledger run: no silo merged a peer")
+    for sid, v in a["global_accuracy"].items():
+        if abs(v - b["global_accuracy"][sid]) > ACC_TOL:
+            fail(f"async ledger run, {sid}: global accuracy {v} on the card "
+                 f"vs {b['global_accuracy'][sid]} on the CPU")
+    return {"launches": launches, "wall_s": wall}
+
+
+def profile_async_wan() -> dict:
+    """The Async WAN run once more, under ``torch.profiler``: the device's
+    busy share of its wall time and the kernels that fill it. Its launches
+    are not counted toward the path."""
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        orch, _, wall, drain = async_run("cuda")
+    kern = [e for e in prof.key_averages()
+            if e.device_type == torch.autograd.DeviceType.CUDA]
+    busy_us = sum(e.self_device_time_total for e in kern)
+    top = sorted(kern, key=lambda e: -e.self_device_time_total)[:8]
+    ported = {}
+    for name in ("weighted_sum_kernel", "quantize_kernel",
+                 "dequantize_kernel", "wsum_q8_kernel",
+                 "add_q8_delta_kernel"):
+        hits = [e for e in kern if f"::{name}" in e.key]
+        ported[name] = {"count": sum(e.count for e in hits),
+                        "ms": sum(e.self_device_time_total for e in hits)
+                        / 1e3}
+    total = wall + drain
+    return {"phase": "profile-async-int8-delta-wan", "rounds": 3,
+            "wall_s": total, "wall_s_per_round": total / 3,
+            "device_busy_s": busy_us / 1e6,
+            "device_idle_share": 1.0 - busy_us / 1e6 / total,
+            "sim_end_s": orch.env.now, "device_kernels": len(kern),
+            "ported_kernels": ported,
+            "top_kernels": [{"name": e.key[:80], "count": e.count,
+                             "ms": e.self_device_time_total / 1e3}
+                            for e in top]}
+
+
+def sync_multikrum_wan() -> dict:
+    """``sync-multikrum-wan``: Sync with int8-delta and MultiKRUM over the
+    ``lan`` fabric, 4 silos (1.0-1.15 s windows, time_scale 0), silo2 and
+    silo3 partitioned away in round 2 and healed in round 3, launch counts
+    set to 0 just before it: the Gram kernels run behind fabric fetches
+    (``gram_q8`` on round 1's whole int8 models, ``gram_and_norms`` on the
+    rebuilt deltas), and every replica converges after the heal."""
+    from repro_torch.config import FaultScenario, FedConfig, NetConfig
+    from repro_torch.configs import get_config
+    from repro_torch.core.builder import SiloSpec, build_image_experiment
+    from repro_torch.kernels import _build
+    scenarios = (FaultScenario(action="partition", node="silo2,silo3",
+                               round=2, when="train"),
+                 FaultScenario(action="heal", round=3, when="train"))
+    fed = FedConfig(n_silos=4, clients_per_silo=2, rounds=3, mode="sync",
+                    scorer="multikrum", agg_policy="top_k", policy_k=2,
+                    compression="int8-delta", round_deadline_s=3.0,
+                    scorer_deadline_s=2.0,
+                    net=NetConfig(preset="lan", replication_factor=1,
+                                  prefetch=True, scenarios=scenarios))
+    orch = build_image_experiment(
+        get_config("paper-cnn"), fed, partition="niid", alpha=0.2,
+        n_train=1500, n_test=450, seed=0, device="cuda",
+        silo_specs=[SiloSpec(extra_train_delay=1.0 + 0.05 * i)
+                    for i in range(4)])
+    for s in orch.silos:
+        s.time_scale = 0.0
+    torch.cuda.synchronize()
+    _build.reset_launches()
+    t0 = time.perf_counter()
+    orch.run(3)
+    orch.env.run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = _build.launch_counts()
+    summ = async_summary(orch, {})
+    line = {"phase": "sync-multikrum-wan", "rounds": 3, "wall_s": wall,
+            "launches": launches,
+            "demand_fetches": sum(s.store.stats["peer_fetches"]
+                                  for s in orch.silos),
+            "prefetch": orch.prefetcher.hit_stats(),
+            **{k: summ[k] for k in ("rounds_done", "ledger_height",
+                                    "chain_heights", "forks_observed",
+                                    "reorgs", "converged", "state_digests",
+                                    "replicas_verify", "wan_bytes",
+                                    "chain_bytes", "fetch_stall_s")}}
+    print(json.dumps(line), flush=True)
+    check_chain("sync multikrum wan run", summ, faults=False)
+    if summ["rounds_done"] != [3] * 4 or summ["forks_observed"] < 1:
+        fail(f"sync multikrum wan run: rounds {summ['rounds_done']}, forks "
+             f"{summ['forks_observed']}")
+    if not (launches["gram_q8"] and launches["gram_and_norms"]):
+        fail(f"sync multikrum wan run: Gram launches {launches}")
+    return {"launches": launches}
+
+
+def sync_vs_async_straggler() -> dict:
+    """``sync-vs-async-straggler`` (paper §4.2.4), the specs of the
+    reference's ``tests/test_system.py::test_async_runs_and_is_faster_than_
+    sync_with_straggler``: 3 silos x 2 clients, 2 rounds, silo2 2.0 s late
+    a round, host compute on the card charged to the simulated clock
+    (time_scale 1). The simulated time at which the fast silos finish in
+    Async against Sync's end, in simulated seconds."""
+    from repro_torch.config import FedConfig
+    from repro_torch.configs import get_config
+    from repro_torch.core.builder import SiloSpec, build_image_experiment
+    out = {}
+    for mode in ("sync", "async"):
+        fed = FedConfig(n_silos=3, clients_per_silo=2, rounds=2,
+                        local_epochs=1, mode=mode, scorer="accuracy",
+                        agg_policy="all", score_policy="median")
+        orch = build_image_experiment(
+            get_config("paper-cnn"), fed, n_train=600, n_test=200, seed=0,
+            device="cuda", silo_specs=[SiloSpec(), SiloSpec(),
+                                       SiloSpec(extra_train_delay=2.0)])
+        orch.run(2)
+        fast = [s for s in orch.silos if s.extra_train_delay == 0.0]
+        out[mode] = {"sim_end_s": orch.env.now,
+                     "fast_done_sim_s": max(m["t"] for s in fast
+                                            for m in s.metrics)}
+    line = {"phase": "sync-vs-async-straggler",
+            "clock": "simulated seconds; host compute on the card charged "
+                     "at time_scale 1.0",
+            "async_fast_silos_done_sim_s": out["async"]["fast_done_sim_s"],
+            "sync_end_sim_s": out["sync"]["sim_end_s"],
+            "async_end_sim_s": out["async"]["sim_end_s"]}
+    print(json.dumps(line), flush=True)
+    if not line["async_fast_silos_done_sim_s"] < line["sync_end_sim_s"]:
+        fail("sync vs async: the fast silos did not finish before Sync")
+    return line
+
+
+# --------------------------------------------------------------------------- #
+# Phase 6: serving RWKV-6 1.6B
 # --------------------------------------------------------------------------- #
 
 def serve_request(model, params, batch: int, prompt_len: int, gen: int,
@@ -979,12 +1380,11 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device visible", file=sys.stderr)
         return 1
-    here = os.path.dirname(os.path.abspath(__file__))
-    if not os.path.isdir(os.path.join(here, "src", "repro_torch")):
+    if not os.path.isdir(os.path.join(HERE, "src", "repro_torch")):
         print("chip_smoke: src/repro_torch is not beside this script: run it "
               "from a checkout of the repository", file=sys.stderr)
         return 1
-    sys.path.insert(0, os.path.join(here, "src"))
+    sys.path.insert(0, os.path.join(HERE, "src"))
     from repro_torch import tree
     from repro_torch.kernels import _build
 
@@ -1076,7 +1476,13 @@ def main() -> int:
     print(json.dumps(profile_rounds("int8", "accuracy", 1)), flush=True)
     print(json.dumps(profile_rounds("int8-delta", "multikrum", 2)), flush=True)
 
-    # phase 5: serve RWKV-6 1.6B at full width, then the depth-2 CPU check
+    # phase 5: the Async engine and the WAN fabric
+    async_wan = async_wan_phase(tree)
+    print(json.dumps(profile_async_wan()), flush=True)
+    krum_wan = sync_multikrum_wan()
+    sync_vs_async_straggler()
+
+    # phase 6: serve RWKV-6 1.6B at full width, then the depth-2 CPU check
     from repro_torch.configs import get_config
     from repro_torch.core.builder import resolve_device
     from repro_torch.models import build_model
@@ -1106,26 +1512,36 @@ def main() -> int:
     torch.cuda.empty_cache()
     cross_check_serving_on_cpu()
 
-    # phase 6: the kernels line and the result line
+    # phase 7: the kernels line and the result line
+    # row name -> (the kernels line's name, source, the TPU kernel, the
+    # wrapper whose launches count it)
     meta = {
-        "weighted_sum": ("src/repro_torch/kernels/csrc/wsum.cu",
-                         "src/repro/kernels/wsum.py:27"),
-        "quantize": ("src/repro_torch/kernels/csrc/quant.cu",
-                     "src/repro/kernels/quant.py:34"),
-        "dequantize": ("src/repro_torch/kernels/csrc/quant.cu",
-                       "src/repro/kernels/quant.py:55"),
-        "wsum_q8": ("src/repro_torch/kernels/csrc/q8agg.cu",
-                    "src/repro/kernels/q8agg.py:51"),
-        "add_q8_delta": ("src/repro_torch/kernels/csrc/q8agg.cu",
-                         "src/repro/kernels/q8agg.py:77"),
-        "gram_q8": ("src/repro_torch/kernels/csrc/q8agg.cu",
-                    "src/repro/kernels/q8agg.py:122"),
-        "gram_and_norms": ("src/repro_torch/kernels/csrc/multikrum.cu",
-                           "src/repro/kernels/multikrum.py:40"),
-        "wkv6": ("src/repro_torch/kernels/csrc/wkv6.cu",
-                 "src/repro/kernels/rwkv6.py:68"),
+        "weighted_sum": ("weighted_sum", "src/repro_torch/kernels/csrc/wsum.cu",
+                         "src/repro/kernels/wsum.py:27", "weighted_sum"),
+        "quantize": ("quantize", "src/repro_torch/kernels/csrc/quant.cu",
+                     "src/repro/kernels/quant.py:34", "quantize"),
+        "dequantize_k1": ("dequantize",
+                          "src/repro_torch/kernels/csrc/quant.cu",
+                          "src/repro/kernels/quant.py:79", "dequantize"),
+        "dequantize": ("dequantize_batch",
+                       "src/repro_torch/kernels/csrc/quant.cu",
+                       "src/repro/kernels/quant.py:55", "dequantize"),
+        "wsum_q8": ("wsum_q8", "src/repro_torch/kernels/csrc/q8agg.cu",
+                    "src/repro/kernels/q8agg.py:51", "wsum_q8"),
+        "add_q8_delta": ("add_q8_delta",
+                         "src/repro_torch/kernels/csrc/q8agg.cu",
+                         "src/repro/kernels/q8agg.py:77", "add_q8_delta"),
+        "gram_q8": ("gram_q8", "src/repro_torch/kernels/csrc/q8agg.cu",
+                    "src/repro/kernels/q8agg.py:122", "gram_q8"),
+        "gram_and_norms": ("gram_and_norms",
+                           "src/repro_torch/kernels/csrc/multikrum.cu",
+                           "src/repro/kernels/multikrum.py:40",
+                           "gram_and_norms"),
+        "wkv6": ("wkv6", "src/repro_torch/kernels/csrc/wkv6.cu",
+                 "src/repro/kernels/rwkv6.py:68", "wkv6"),
     }
-    # each kernel's launches on the main path that runs it
+    # each kernel's launches on the main path that runs it; dequantize and
+    # dequantize_batch are one kernel behind one wrapper, one count
     path_launches = {k: launches[k] for k in
                      ("weighted_sum", "quantize", "dequantize", "wsum_q8")}
     path_launches.update({k: launches_d[k] for k in
@@ -1133,14 +1549,18 @@ def main() -> int:
     path_launches["wkv6"] = sum(r["wkv6_launches"] for r in serving)
     kernels = []
     for r in main_rows:
-        # dequantize_k1: the same kernel, K = 1; other rows: not the
-        # operand the main path hands the kernel
+        # other rows: not the operand the main path hands the kernel
         if r["name"] not in meta or not r["path"]:
             continue
-        src, replaces = meta[r["name"]]
-        kernels.append({"name": r["name"], "route": "cuda", "source": src,
+        name, src, replaces, counter = meta[r["name"]]
+        kernels.append({"name": name, "route": "cuda", "source": src,
                         "replaces": replaces,
-                        "launches": path_launches[r["name"]],
+                        "launches": path_launches[counter],
+                        "launches_counter": counter,
+                        "launches_async_wan":
+                            async_wan["launches"][counter],
+                        "launches_multikrum_wan":
+                            krum_wan["launches"][counter],
                         "max_abs_err": r["max_abs_err"], "ms": r["kernel_ms"],
                         "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
                         "bound_by": r["bound_by"],
@@ -1150,6 +1570,8 @@ def main() -> int:
                         "n": r.get("n", r.get("N")),
                         "library_n": r.get("library_n"),
                         "check": r["check"]})
+    if len(kernels) != 9:
+        fail(f"the kernels line lists {len(kernels)} kernels, want 9")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

@@ -12,6 +12,8 @@ replica    -- per-silo block tree, mempool, canonical-head maintenance,
               per-replica WAL segment + snapshot/recover (crash durability)
 sealer     -- Clique sealing schedule (in-turn difficulty 2 / out-of-turn 1)
 forkchoice -- heaviest chain, deterministic tie-break (smallest head hash)
+sync       -- block broadcast + locator catch-up + heal/restart resync on
+              the fabric; kill/restart replica lifecycle
 adapter    -- re-executable contract execution; LedgerView (the Ledger API
               bound to one replica: submit-via-local, read-your-replica)
 merkle     -- deterministic Merkle tx trees (header ``txroot``), inclusion
@@ -27,8 +29,9 @@ from repro_torch.chain.replica import (GENESIS, HEADER_WIRE_NBYTES,
                                        WAL_FORMAT_VERSION, Block,
                                        ChainReplica, ReplicaSnapshot, Tx,
                                        header_hash, load_snapshot)
+from repro_torch.chain.sync import ChainNetwork
 
-__all__ = ["ChainReplica", "LedgerView", "ContractExecutor",
+__all__ = ["ChainNetwork", "ChainReplica", "LedgerView", "ContractExecutor",
            "Block", "Tx", "GENESIS", "ReplicaSnapshot", "load_snapshot",
            "WAL_FORMAT_VERSION", "HEADER_WIRE_NBYTES", "header_hash",
            "better", "common_ancestor", "total_difficulty", "difficulty",

@@ -13,7 +13,8 @@ from typing import Dict, Optional, Sequence
 import torch
 
 from repro_torch.config import FedConfig, ModelConfig
-from repro_torch.core.orchestrator import (BaseOrchestrator, SiloPolicy,
+from repro_torch.core.orchestrator import (AsyncOrchestrator,
+                                           BaseOrchestrator, SiloPolicy,
                                            SyncOrchestrator, check_ported)
 from repro_torch.data.partition import dirichlet_partition, iid_partition
 from repro_torch.data.synthetic import make_image_dataset
@@ -77,7 +78,8 @@ def build_image_experiment(model_cfg: ModelConfig, fed: FedConfig, *,
     # each silo also gets a private test shard (its scoring set)
     test_parts = iid_partition(len(xt), fed.n_silos, seed=seed + 1)
 
-    orch = SyncOrchestrator(fed)
+    orch_cls = SyncOrchestrator if fed.mode == "sync" else AsyncOrchestrator
+    orch = orch_cls(fed)
     specs = list(silo_specs or [SiloSpec() for _ in range(fed.n_silos)])
     model = build_model(model_cfg)
     for i in range(fed.n_silos):

@@ -1,4 +1,4 @@
-"""UnifyFL orchestration engine (paper §3.1–§3.2), Sync mode.
+"""UnifyFL orchestration engines (paper §3.1–§3.3).
 
 Twin of ``repro.core.orchestrator``. ``SiloRuntime`` wires one FL cluster to
 the ledger/contract and its store node. ``SyncOrchestrator`` runs the
@@ -6,17 +6,25 @@ phase-locked cycle (training window -> scoring window -> finalize);
 stragglers that miss the submission window are deferred to the next round
 and late scores are disregarded, exactly per §3.2. Scoring is per model
 (accuracy or loss, batched per scorer) or MultiKRUM over the whole round.
+``AsyncOrchestrator`` lets every silo loop independently; the contract
+assigns scorers from idle aggregators the moment a CID lands (§3.3).
 Fault tolerance: scorer reassignment on deadline, CAS-backed
-checkpoint/restart.
+checkpoint/restart, and, over a fabric, kill and restart from the WAL.
 
-Orchestration state lives in the single-replica ``Ledger``. Not ported yet
-(ROADMAP.md, queue 1): the replicated chain over a WAN fabric
-(``FedConfig.net``), edge fleets and the Async engine — each raises
-``NotImplementedError``.
+Orchestration state lives in the single-replica ``Ledger``, or, when
+``FedConfig.net`` configures a network fabric, in one ``repro_torch.chain``
+replica per silo (plus one for the engine's own control txs): every submit
+goes via the submitter's *local* replica (sealed immediately, gossiped as
+charged fabric transfers) and every read is read-your-replica — stale
+during partitions, reconciled by fork choice + contract re-execution after
+the heal. A tx that reverts against a stale local replica retries after a
+short resync delay. Not ported yet (ROADMAP.md, queue 1 item 4): the edge
+tier, which raises ``NotImplementedError``.
 """
 from __future__ import annotations
 
 import hashlib
+import os
 import random
 import time
 from dataclasses import dataclass
@@ -47,9 +55,10 @@ class SiloPolicy:
     k: int = 2
 
 
-ORCH_NODE = "orchestrator"   # the engine's own tx sender
-CHAIN_RETRY_S = 0.25         # resubmit delay after a revert
-CHAIN_RETRIES = 8
+ORCH_NODE = "orchestrator"   # the engine's own chain replica / tx sender
+CHAIN_RETRY_S = 0.25         # resubmit delay after a stale-replica revert
+CHAIN_RETRIES = 8            # bounded: 8 x 0.25s covers any preset's RTT
+COLLUDE_SCORE = 0.99         # the inflated score a colluding clique submits
 
 
 def _not_ported(what: str, item: str) -> NotImplementedError:
@@ -59,14 +68,9 @@ def _not_ported(what: str, item: str) -> NotImplementedError:
 
 def check_ported(fed: FedConfig) -> None:
     """Refuse the configurations whose code paths later slices port."""
-    if fed.net is not None:
-        raise _not_ported("FedConfig.net (replicated chain over the WAN "
-                          "fabric)", "item 7, the net fabric path")
     if fed.edge_per_silo > 0 or fed.edge_light_clients:
-        raise _not_ported("the edge tier (edge_per_silo)", "item 7, "
-                          "edge/fleet.py")
-    if fed.mode != "sync":
-        raise _not_ported(f"mode={fed.mode!r}", "item 7, AsyncOrchestrator")
+        raise _not_ported("the edge tier (edge_per_silo, "
+                          "edge_light_clients)", "item 4, edge/fleet.py")
     wire.resolve_method(fed.compression)
 
 
@@ -91,6 +95,9 @@ class SiloRuntime:
         self.extra_score_delay = extra_score_delay
         self.time_scale = time_scale
         self.alive = True
+        # bumped by fail(): work a crashed incarnation scheduled (a training
+        # or scoring window, a resubmit) does not complete after a restart
+        self.incarnation = 0
         self.rounds_done = 0
         self.last_cid: Optional[str] = None
         # the silo's last announced model CID: the delta-coding base its next
@@ -98,6 +105,9 @@ class SiloRuntime:
         self.last_global_cid: Optional[str] = None
         self.last_self_score = float("-inf")
         self.metrics: List[Dict] = []
+        # injected scorer fault (adversarial scenarios): None, or a
+        # ("collude", clique) / ("byzantine", _) pair set by the fault layer
+        self.scorer_fault: Optional[tuple] = None
         # per-round aggregation picks ({round, owners})
         self.pick_log: List[Dict] = []
         if fed.scorer not in SCORERS:
@@ -129,10 +139,12 @@ class SiloRuntime:
                                       logical_time=self.env.now, **args)
         except PermissionError:
             if _retries > 0 and self.alive:
+                inc = self.incarnation
                 self.env.schedule(
                     CHAIN_RETRY_S,
                     lambda: (self._submit(method, _retries=_retries - 1,
-                                          **args) if self.alive else None),
+                                          **args)
+                             if self._current(inc) else None),
                     f"{self.silo_id}:resubmit:{method}")
             else:
                 self.env.emit(obsev.tx_revert(self.silo_id, method))
@@ -140,6 +152,24 @@ class SiloRuntime:
 
     def register(self):
         self._submit("register")
+
+    def heartbeat(self):
+        if self.alive:
+            self._submit("heartbeat")
+
+    def _current(self, inc: int) -> bool:
+        """Alive, and still the incarnation that scheduled the work."""
+        return self.alive and self.incarnation == inc
+
+    def fail(self):
+        """Crash the silo (stops reacting to events). What it had in flight
+        is lost with the process: a restart before that work's event fires
+        does not bring it back (the reference lets it complete, so a silo
+        killed and restarted within one window ran two loops)."""
+        self.alive = False
+        self.incarnation += 1
+        # a crashed silo's open phase span ends here, marked aborted
+        self.env.tracer.close_track(f"{self.silo_id}/phases", self.env.now)
 
     # -- training ---------------------------------------------------------- #
     def flat_spec(self):
@@ -169,6 +199,9 @@ class SiloRuntime:
         Runs in flat-vector space: own params flatten against the cached
         spec, quantized peers flow straight into the fused weighted sum, and
         the merged vector unflattens into ``cluster.params`` exactly once.
+        Peer pulls may cross the WAN fabric: their transfer time accumulates
+        in the store node and is folded into the next training duration;
+        unreachable peers (partition/churn) are skipped, not fatal.
         With ``fed.reputation_weighted`` the per-model score collapse is
         weighted by on-chain reputation."""
         src = self._read_contract()
@@ -185,11 +218,11 @@ class SiloRuntime:
         if not picked:
             return 0
         peers = []
-        for c in picked:
+        for c in picked:  # may hit IPFS peers over the fabric
             try:
                 dm = self.get_decoded(c.cid)
                 if dm.needs_base:
-                    dm.vec()  # resolve the delta base chain
+                    dm.vec()  # resolve the delta base chain (may fetch)
                 peers.append(dm)
             except (KeyError, IOError):
                 self.env.emit(obsev.pull_fail(self.silo_id, c.cid))
@@ -234,20 +267,37 @@ class SiloRuntime:
         t0 = time.perf_counter()
         m = self.cluster.train_round()
         compute = (time.perf_counter() - t0) * self.time_scale
-        duration = compute + self.extra_train_delay
+        # WAN time spent pulling peer models for this round's merge enters
+        # the simulated clock here (network charge is not time_scale'd)
+        net_wait = self.store.drain_transfer_time()
+        duration = compute + self.extra_train_delay + net_wait
         tr = self.env.tracer
+        t0_sim = self.env.now
         track = f"{self.silo_id}/phases"
-        sp = tr.begin("phase.train", track, self.env.now,
+        if net_wait > 0:
+            # the pulls happened during pull_and_merge; their WAN charge
+            # stalls the head of this round's window
+            tr.span_at("phase.fetch-stall", track, t0_sim, t0_sim + net_wait,
+                       round=self.rounds_done + 1)
+        sp = tr.begin("phase.train", track, t0_sim,
                       round=self.rounds_done + 1)
+        inc = self.incarnation
 
         def finish():
-            if not self.alive:
+            if not self._current(inc):
                 return
             tr.end(sp, self.env.now)
-            cid = self.store.put(self._encode())
+            payload = self._encode()
+            cid = self.store.put(payload)
             self.last_cid = cid
             self.last_global_cid = cid
             self._announces += 1
+            fab = self.store.fabric
+            if fab is not None:
+                # advertise the fresh CID (and its delta base, so replication
+                # and prefetch can move the base chain alongside the delta)
+                fab.announce(cid, self.silo_id,
+                             base_cid=wire.base_cid_of_store(payload))
             ev = self.cluster.evaluate()
             self.last_self_score = ev["accuracy"] if self.fed.scorer != "loss" \
                 else -ev["loss"]
@@ -283,6 +333,7 @@ class SiloRuntime:
                 decoded.append(dm)
                 kept.append(cid)
             except (KeyError, IOError):
+                # model unreachable (partition/churn): drop this assignment
                 self.env.emit(obsev.score_fetch_fail(self.silo_id, cid))
         if not kept:
             self._submit("set_busy", busy=False)
@@ -290,17 +341,23 @@ class SiloRuntime:
         scores = scorebatch.score_round_batch(
             self.cluster, decoded, self.flat_spec(), method=self.score_method)
         compute = (time.perf_counter() - t0) * self.time_scale
-        duration = compute + self.extra_score_delay
+        net_wait = self.store.drain_transfer_time()
+        duration = compute + self.extra_score_delay + net_wait
         tr = self.env.tracer
-        sp = tr.begin("phase.score", f"{self.silo_id}/phases", self.env.now,
-                      k=len(kept))
+        t0_sim = self.env.now
+        track = f"{self.silo_id}/phases"
+        if net_wait > 0:
+            tr.span_at("phase.fetch-stall", track, t0_sim, t0_sim + net_wait,
+                       k=len(kept))
+        sp = tr.begin("phase.score", track, t0_sim, k=len(kept))
+        inc = self.incarnation
 
         def finish():
-            if not self.alive:
+            if not self._current(inc):
                 return
             tr.end(sp, self.env.now)
             for cid, score in zip(kept, scores):
-                val = float(score)
+                val = self._score_value(cid, float(score))
                 if self.fed.commit_reveal:
                     # commit H(score|salt) first, reveal immediately after;
                     # the contract verifies the reveal against the commitment
@@ -320,9 +377,27 @@ class SiloRuntime:
         self.env.schedule(duration, finish,
                           f"{self.silo_id}:score:{kept[0][:8]}x{len(kept)}")
 
+    def _score_value(self, cid: str, score: float) -> float:
+        """Apply an injected scorer fault: a colluding clique inflates
+        clique-owned models (and stays honest elsewhere), a byzantine scorer
+        inverts every score. The perturbed value is what gets committed AND
+        revealed — adversaries are internally consistent, so only settlement
+        catches them."""
+        if self.scorer_fault is None:
+            return score
+        mode, clique = self.scorer_fault
+        if mode == "collude":
+            entry = self.contract.models.get(cid)
+            if entry is not None and entry.owner in clique:
+                return COLLUDE_SCORE
+            return score
+        if mode == "byzantine":
+            return min(1.0, max(0.0, 1.0 - score))
+        return score
+
     def score_async(self, cid: str, owner: str):
-        """Single-CID assignment (scorer reassignment): a K=1 batch through
-        the same engine."""
+        """Single-CID assignment (Async engine / scorer reassignment): a
+        K=1 batch through the same engine."""
         if owner == self.silo_id:
             return
         self.score_round([cid])
@@ -383,7 +458,15 @@ class BaseOrchestrator:
         self.contract = UnifyFLContract(mode=fed.mode)
         self.silos: List[SiloRuntime] = []
         self._ledger_path = ledger_path
-        self.ledger: Optional[Ledger] = None
+        self.ledger = None        # Ledger (single-replica) or chain.LedgerView
+        self.chain = None         # chain.ChainNetwork in replicated mode
+        self.fabric = None
+        self.prefetcher = None
+        self.gossip = None
+        self._fault_injector = None
+        # Async sets this to its per-silo loop so a restarted silo resumes
+        self._resume_loop: Optional[Callable[[SiloRuntime], None]] = None
+        # per-round marks: {round, silo, t, wan_bytes, chain_bytes}
         self.round_log: List[Dict] = []
 
     def add_silo(self, cluster: Cluster, **kw) -> SiloRuntime:
@@ -394,12 +477,111 @@ class BaseOrchestrator:
         self.silos.append(silo)
         return silo
 
-    def _wire(self):
-        self.ledger = Ledger([s.silo_id for s in self.silos],
-                             path=self._ledger_path)
-        self.ledger.attach_contract(self.contract)
+    def _build_net(self):
+        """Stand up the simulated WAN fabric described by ``fed.net``."""
+        from repro_torch.net import (FaultInjector, GossipReplicator,
+                                     NetFabric, Prefetcher, Topology)
+        net = self.fed.net
+        topo = Topology(net.preset, seed=net.seed)
+        self.fabric = NetFabric(self.env, topo, chunk_bytes=net.chunk_bytes,
+                                seed=net.seed,
+                                bandwidth_model=net.bandwidth_model,
+                                trace_cap=net.transfer_trace_cap,
+                                qos_weights=net.qos_weights)
+        self.obs.adopt(self.fabric.stats)
+        self.network.attach_fabric(self.fabric)
+        if net.replication_factor > 0:
+            self.gossip = GossipReplicator(self.fabric, self.network,
+                                           factor=net.replication_factor)
+            self.obs.adopt(self.gossip.stats)
+            self.fabric.subscribe(self.gossip.on_announce)
+        if net.prefetch:
+            # lands decoded models on each node's device (warm_decoded)
+            self.prefetcher = Prefetcher(self.fabric, self.network,
+                                         delay_s=net.prefetch_delay_s,
+                                         fanout=net.prefetch_fanout)
+            self.obs.adopt(self.prefetcher.stats)
+            self.fabric.subscribe(self.prefetcher.on_announce)
+        if net.scenarios:
+            # _build_net runs after every add_silo, so the full node set is
+            # known here: a scenario naming an unknown node aborts now, not
+            # rounds into the run
+            self._fault_injector = FaultInjector(
+                self.fabric, net.scenarios, on_down=self._silo_net_down,
+                on_restart=self._silo_restart,
+                on_scorer_fault=self._set_scorer_fault,
+                nodes=[s.silo_id for s in self.silos] + [ORCH_NODE])
+            self._fault_injector.schedule_timed()
+
+    def _silo_net_down(self, node_id: str):
+        """Churned-out node == that silo stops participating."""
         for s in self.silos:
-            s.bind_ledger(self.ledger)
+            if s.silo_id == node_id:
+                s.fail()
+
+    def _silo_restart(self, node_id: str):
+        """A killed silo comes back: its chain replica has already recovered
+        (WAL replay + peer resync, handled by the fault layer); here the
+        *silo* resumes participating — Sync picks it up at the next round's
+        ``live()`` pass, Async re-enters its loop from an event."""
+        for s in self.silos:
+            if s.silo_id == node_id:
+                s.alive = True
+                if self._resume_loop is not None:
+                    self.env.schedule(0.0, lambda s=s: self._resume_loop(s),
+                                      f"{s.silo_id}:restart")
+
+    def _set_scorer_fault(self, node_id: str, mode: Optional[str],
+                          clique: Sequence[str]):
+        """Arm (or clear, mode=None) an adversarial scorer fault on a silo:
+        its subsequent score submissions are perturbed at the source."""
+        for s in self.silos:
+            if s.silo_id == node_id:
+                s.scorer_fault = None if mode is None \
+                    else (mode, frozenset(clique))
+
+    def _net_phase(self, rnd: int, when: str):
+        if self._fault_injector is not None:
+            self._fault_injector.on_phase(rnd, when)
+
+    def _wire(self):
+        if self.fed.net is not None and self.fabric is None:
+            self._build_net()
+        sealer_ids = [s.silo_id for s in self.silos]
+        if self.fabric is not None:
+            # replicated mode: one chain replica per silo + one for the
+            # engine's control txs — no Ledger singleton anywhere; blocks
+            # gossip as charged fabric transfers. With ``net.wal_dir`` set,
+            # every replica also appends its blocks to a per-node JSONL
+            # segment — a killed replica then restarts from disk (zero
+            # fabric bytes) and only peer-syncs the gap.
+            from repro_torch.chain import ChainNetwork
+            wal_dir = self.fed.net.wal_dir if self.fed.net else ""
+            if wal_dir:
+                os.makedirs(wal_dir, exist_ok=True)
+
+            def seg(nid: str) -> Optional[str]:
+                return os.path.join(wal_dir, f"{nid}.jsonl") if wal_dir \
+                    else None
+
+            self.chain = ChainNetwork(self.env, self.fabric,
+                                      sealers=sealer_ids + [ORCH_NODE])
+            for s in self.silos:
+                s.bind_ledger(self.chain.add_replica(
+                    s.silo_id, UnifyFLContract(self.fed.mode),
+                    segment_path=seg(s.silo_id)))
+            self.ledger = self.chain.add_replica(ORCH_NODE, self.contract,
+                                                 segment_path=seg(ORCH_NODE))
+            self.obs.adopt(self.chain.stats)
+            for rep in self.chain.replicas.values():
+                self.obs.adopt(rep.stats)
+            if self._fault_injector is not None:
+                self._fault_injector.chain = self.chain
+        else:
+            self.ledger = Ledger(sealer_ids, path=self._ledger_path)
+            self.ledger.attach_contract(self.contract)
+            for s in self.silos:
+                s.bind_ledger(self.ledger)
         for s in self.silos:
             s.register()
 
@@ -410,7 +592,12 @@ class BaseOrchestrator:
         return None
 
     def _mark_round(self, rnd: int, silo_id: Optional[str] = None):
-        mark = {"round": rnd, "silo": silo_id, "t": self.env.now}
+        """Log a round boundary with the fabric's cumulative WAN bytes
+        (``chain_bytes`` separates consensus gossip from store traffic)."""
+        mark = {"round": rnd, "silo": silo_id, "t": self.env.now,
+                "wan_bytes": self.fabric.stats["bytes"] if self.fabric else 0,
+                "chain_bytes":
+                    self.fabric.stats["chain_bytes"] if self.fabric else 0}
         if self.obs.enabled and self.obs.cfg.metrics_in_round_log:
             mark["metrics"] = self.obs.registry.flat()
         self.round_log.append(mark)
@@ -428,6 +615,13 @@ class BaseOrchestrator:
         self.obs.finish(self.env.now)
         if self.obs.cfg.trace_path:
             self.obs.export(self.obs.cfg.trace_path)
+
+    def export_trace(self, path: str) -> None:
+        """Write the run's Chrome-trace JSON (with the flat metrics snapshot
+        embedded). Callable any time after ``run()``; open spans are closed
+        first so the export always has matched begin/end pairs."""
+        self.obs.finish(self.env.now)
+        self.obs.export(path)
 
 
 class SyncOrchestrator(BaseOrchestrator):
@@ -455,6 +649,7 @@ class SyncOrchestrator(BaseOrchestrator):
         for r in range(1, rounds + 1):
             self.ledger.submit(ORCH_NODE, "start_training",
                                logical_time=self.env.now)
+            self._net_phase(r, "train")
             t_round = self.env.now
             submitted[r] = set()
             cids[r] = set()
@@ -472,6 +667,10 @@ class SyncOrchestrator(BaseOrchestrator):
                 s.train_and_submit(on_submit)
 
             def barrier(r=r):
+                # all live silos submitted AND their submissions are visible
+                # on the engine's own replica (read-your-replica: with a
+                # replicated chain the blocks must *arrive* — a partitioned
+                # silo's model never does, and the deadline breaks the wait)
                 return all(s.silo_id in submitted[r] for s in self.live()) \
                     and all(c in self.contract.models for c in cids[r])
 
@@ -482,6 +681,7 @@ class SyncOrchestrator(BaseOrchestrator):
                     if t_close > ts:
                         tr.span_at("phase.chain-wait", f"{sid}/phases",
                                    ts, t_close, round=r)
+            self._net_phase(r, "score")
             assignments = self.ledger.submit(ORCH_NODE, "start_scoring",
                                              logical_time=self.env.now) or {}
             if self.fed.scorer == "multikrum":
@@ -551,10 +751,14 @@ class SyncOrchestrator(BaseOrchestrator):
         scores = multikrum_scores_for_decoded(decoded, self.fed.multikrum_m)
         for e, sc in zip(reachable, scores):
             for sid in e.assigned:
+                # each score submits via the scorer's own replica (replicated
+                # mode); a stale-replica revert drops that one score
+                silo = self._by_id(sid)
+                led = silo.ledger if silo is not None and silo.ledger \
+                    is not None else self.ledger
                 try:
-                    self.ledger.submit(sid, "submit_score", cid=e.cid,
-                                       score=float(sc),
-                                       logical_time=self.env.now)
+                    led.submit(sid, "submit_score", cid=e.cid,
+                               score=float(sc), logical_time=self.env.now)
                 except PermissionError:
                     self.env.emit(obsev.tx_revert(sid, "submit_score"))
 
@@ -587,7 +791,48 @@ class SyncOrchestrator(BaseOrchestrator):
 
 
 class AsyncOrchestrator(BaseOrchestrator):
-    """Independent silo loops (paper §3.3): not ported yet."""
+    """Independent silo loops (paper §3.3): no phase barrier; the contract
+    assigns scorers from idle aggregators as soon as a CID is submitted.
+    Scoring is per model: MultiKRUM is round-level, and with
+    ``scorer="multikrum"`` each assignment falls back to accuracy
+    (``SiloRuntime.score_method``), as in the reference."""
 
-    def __init__(self, fed: FedConfig, **kw):
-        raise _not_ported("AsyncOrchestrator", "item 7, the Async engine")
+    def run(self, rounds: int) -> Dict:
+        self._wire()
+        # (no direct contract mutation here: the first submit_model tx opens
+        # round 1 — all state changes go through the chain)
+        # subscribe scorers to StartScoring events
+        def on_event(event: str, payload: Dict):
+            if event == "StartScoring":
+                entry = self.contract.models[payload["cid"]]
+                for sid in payload["scorers"]:
+                    silo = self._by_id(sid)
+                    if silo and silo.alive and sid != entry.owner:
+                        silo.score_async(payload["cid"], entry.owner)
+
+        self.ledger.subscribe(on_event)
+
+        def loop(silo: SiloRuntime):
+            if not silo.alive or silo.rounds_done >= rounds:
+                return
+            # round-phased fault injection: the first silo entering round r
+            # fires that round's "train" scenarios
+            self._net_phase(silo.rounds_done + 1, "train")
+            silo.pull_and_merge()
+
+            def done(s, cid):
+                s.rounds_done += 1
+                # ... and the first silo *finishing* round r fires "score"
+                self._net_phase(s.rounds_done, "score")
+                s.checkpoint()
+                self._mark_round(s.rounds_done, s.silo_id)
+                self.env.schedule(0.0, lambda: loop(s), f"{s.silo_id}:loop")
+
+            silo.train_and_submit(done)
+
+        self._resume_loop = loop   # a restarted silo re-enters its loop
+        for s in self.silos:
+            self.env.schedule(0.0, lambda s=s: loop(s), f"{s.silo_id}:start")
+        self.env.run()
+        self._finish_obs()
+        return self.summary()

@@ -1,11 +1,20 @@
 """Content-addressed store — the IPFS analogue (paper §2.4, §3.4.2).
 
-Twin of ``repro.core.store``, in memory and without the WAN fabric
-(ROADMAP.md: the net fabric path is a later slice). Properties kept from
-IPFS: content addressing (CID = SHA-256 of canonical bytes), integrity
-verification on fetch, immutability, per-node local blocks with peer
-fetch-and-cache, and hosting store nodes on the aggregator machines
+Twin of ``repro.core.store``. Properties kept from IPFS: content
+addressing (CID = SHA-256 of canonical bytes), integrity verification on
+fetch, immutability, per-node local blocks with peer fetch-and-cache
+(DHT-like), pinning, and hosting store nodes on the aggregator machines
 themselves.
+
+With a ``repro_torch.net.NetFabric`` attached, peer fetches stop being free:
+the provider is chosen DHT-style from the fabric's records (nearest
+reachable replica, not always the origin), the transfer is charged
+simulated time on the (src, dst) link, and per-node accounting lands in
+``stats`` (``bytes_in`` / ``bytes_out`` / ``fetch_time`` / ``replica_hits``
+/ ``prefetch_hits``). ``drain_transfer_time`` hands the accumulated charge
+to the orchestrator so WAN time enters the simulated clock. Decoded models
+land on the node's ``device`` (the silo's compute device), also when a
+prefetch warms the cache from a simulated-time event.
 
 The pytree codec is byte-compatible with the reference: its JSON header
 holds the same ``str(PyTreeDef)`` and ``jax.tree_util.keystr`` strings, here
@@ -16,6 +25,7 @@ from __future__ import annotations
 
 import hashlib
 import json
+import os
 import threading
 from collections import OrderedDict
 from typing import Any, Callable, Dict, List, Optional, Tuple
@@ -109,27 +119,41 @@ def _chunk(data: bytes) -> List[bytes]:
 # Store nodes + network
 # --------------------------------------------------------------------------- #
 
+
 class StoreNode:
     """One per silo (hosted on the aggregator node, paper §3.4.2). Decoded
     models land on ``device``, the silo's compute device."""
 
-    def __init__(self, node_id: str, device):
+    def __init__(self, node_id: str, device, root: Optional[str] = None):
         self.node_id = node_id
         self.device = torch.device(device)
+        self.root = root
+        self.network: Optional["StoreNetwork"] = None
         self._blocks: Dict[str, List[bytes]] = {}
+        self._pins: set = set()
         self._peers: List["StoreNode"] = []
         self._lock = threading.Lock()
         # decoded-model cache, keyed (cid, resolved_base): a delta envelope's
         # decoded form depends on its base chain, so the base CID is part of
-        # the identity; _decoded_cids indexes cid -> full key
+        # the identity; _decoded_cids indexes cid -> full key (1:1 — content
+        # addressing fixes the base a cid resolves against)
         self._decoded: "OrderedDict[Tuple[str, str], Any]" = OrderedDict()
         self._decoded_cids: Dict[str, Tuple[str, str]] = {}
         self._wire_decoder: Optional[Callable] = None
+        self._prefetched: set = set()
+        self._pending_net_time = 0.0
         self.stats = StatsView("store", node_id)
+        if root:
+            os.makedirs(root, exist_ok=True)
+
+    @property
+    def fabric(self):
+        return self.network.fabric if self.network is not None else None
 
     def wire_decoder(self) -> Callable:
         """Node-bound ``repro_torch.core.wire`` decoder: delta envelopes
-        resolve their base chain through this node's decoded cache."""
+        resolve their base chain through this node's decoded cache, fetching
+        missing base CIDs over the fabric like any other content."""
         if self._wire_decoder is None:
             from repro_torch.core.wire import decode_store
 
@@ -147,24 +171,73 @@ class StoreNode:
             self._peers.append(peer)
 
     # -- API ---------------------------------------------------------------- #
-    def put(self, obj) -> str:
+    def put(self, obj, *, pin: bool = True) -> str:
         data = serialize_pytree(obj) if not isinstance(obj, bytes) else obj
         cid = compute_cid(data)
+        chunks = _chunk(data)
         with self._lock:
-            self._blocks[cid] = _chunk(data)
+            self._blocks[cid] = chunks
+            if pin:
+                self._pins.add(cid)
             self.stats["puts"] += 1
             self.stats["bytes_stored"] += len(data)
+        if self.root:
+            with open(os.path.join(self.root, cid), "wb") as f:
+                f.write(data)
+        fab = self.fabric
+        if fab is not None:
+            fab.publish(cid, self.node_id, len(data))
         return cid
 
     def has(self, cid: str) -> bool:
-        return cid in self._blocks
+        return cid in self._blocks or bool(
+            self.root and os.path.exists(os.path.join(self.root, cid)))
 
     def read_local(self, cid: str) -> Optional[bytes]:
-        """Local blocks only — never touches the network."""
+        """Local blocks / disk only — never touches the network."""
         with self._lock:
             if cid in self._blocks:
                 return b"".join(self._blocks[cid])
+        if self.root:
+            p = os.path.join(self.root, cid)
+            if os.path.exists(p):
+                with open(p, "rb") as f:
+                    return f.read()
         return None
+
+    def serve_bytes(self, cid: str) -> Optional[bytes]:
+        """Serve a block set to a remote peer (counts egress accounting)."""
+        data = self.read_local(cid)
+        if data is not None:
+            with self._lock:
+                self.stats["gets"] += 1
+                self.stats["bytes_out"] += len(data)
+        return data
+
+    def ingest(self, cid: str, data: bytes, *, prefetched: bool = False):
+        """Store pushed/fetched bytes locally (gossip replica or prefetch
+        landing). Verifies content addressing; no-op if already present."""
+        if compute_cid(data) != cid:
+            raise IOError(f"integrity failure ingesting {cid} on "
+                          f"{self.node_id}")
+        with self._lock:
+            if cid not in self._blocks:
+                self._blocks[cid] = _chunk(data)
+                self.stats["bytes_in"] += len(data)
+                # a demand fetch that raced us in already paid for these
+                # bytes — only a genuinely landing prefetch earns the credit
+                if prefetched:
+                    self._prefetched.add(cid)
+        fab = self.fabric
+        if fab is not None:
+            fab.add_provider(cid, self.node_id)
+
+    def drain_transfer_time(self) -> float:
+        """Simulated seconds of WAN transfer accumulated since the last
+        drain; the orchestrator folds this into its scheduled durations."""
+        with self._lock:
+            t, self._pending_net_time = self._pending_net_time, 0.0
+        return t
 
     def get_bytes(self, cid: str) -> bytes:
         data = self.read_local(cid)
@@ -172,7 +245,10 @@ class StoreNode:
             with self._lock:
                 self.stats["gets"] += 1
             return data
-        for peer in self._peers:   # instantaneous DHT-ish peer fetch
+        fab = self.fabric
+        if fab is not None:
+            return self._fetch_via_fabric(cid, fab)
+        for peer in self._peers:   # no fabric: instantaneous DHT-ish fetch
             if peer.has(cid):
                 data = peer.get_bytes(cid)
                 if compute_cid(data) != cid:  # integrity check
@@ -185,15 +261,67 @@ class StoreNode:
                 return data
         raise KeyError(f"CID {cid} not found on {self.node_id} or peers")
 
+    def _fetch_via_fabric(self, cid: str, fab) -> bytes:
+        """Pull over the WAN fabric: nearest reachable replica, integrity
+        check, link-time charge, replica/reroute accounting."""
+        from repro_torch.net.fabric import UnreachableError
+        tried: tuple = ()
+        while True:
+            src_id = fab.best_provider(self.node_id, cid, exclude=tried)
+            if src_id is None:
+                if fab.has_unreachable_provider(self.node_id, cid,
+                                                exclude=tried):
+                    raise UnreachableError(
+                        f"CID {cid} unreachable from {self.node_id}: every "
+                        f"provider is partitioned away or down")
+                raise KeyError(f"CID {cid} not found on {self.node_id} "
+                               f"or any reachable provider")
+            peer = self.network.nodes.get(src_id) if self.network else None
+            data = peer.serve_bytes(cid) if peer is not None else None
+            if data is None:
+                # stale provider record (gc'd or dropped node)
+                fab.drop_provider(cid, src_id)
+                tried = tried + (src_id,)
+                continue
+            if compute_cid(data) != cid:
+                raise IOError(f"integrity failure fetching {cid} "
+                              f"from {src_id}")
+            origin = fab.origin(cid)
+            if src_id == origin:
+                kind = "fetch"
+            elif origin is not None and \
+                    not fab.reachable(self.node_id, origin):
+                kind = "reroute"     # failover: origin gone, replica serves
+            else:
+                kind = "replica"     # replica was simply nearer
+            charged = fab.transfer(src_id, self.node_id, cid, len(data),
+                                   kind=kind)
+            with self._lock:
+                self._blocks[cid] = _chunk(data)
+                self.stats["peer_fetches"] += 1
+                self.stats["bytes_fetched"] += len(data)
+                self.stats["bytes_in"] += len(data)
+                self.stats["fetch_time"] += charged
+                self._pending_net_time += charged
+                if kind != "fetch":
+                    self.stats["replica_hits"] += 1
+            fab.add_provider(cid, self.node_id)
+            return data
+
     def get(self, cid: str, like=None):
         return deserialize_pytree(self.get_bytes(cid), like)
 
     # -- decoded-model cache (lock held for both helpers) ------------------ #
     def _cache_lookup(self, cid: str):
+        """Hit path: returns the cached object or None (updates stats)."""
         key = self._decoded_cids.get(cid)
         if key is None:
             return None
         self.stats["decode_hits"] += 1
+        if cid in self._prefetched:
+            # one hit per prefetched CID: "the prefetch was useful"
+            self.stats["prefetch_hits"] += 1
+            self._prefetched.discard(cid)
         self._decoded.move_to_end(key)
         return self._decoded[key]
 
@@ -205,13 +333,15 @@ class StoreNode:
         while len(self._decoded) > DECODED_CACHE_MAX:
             (ecid, _), _ = self._decoded.popitem(last=False)
             self._decoded_cids.pop(ecid, None)
+            self._prefetched.discard(ecid)
 
     def get_decoded(self, cid: str, decoder: Callable):
         """Fetch + ``decoder(payload)`` once per CID. Content addressing
         makes blocks immutable, so the decoded form (e.g. the packed int8
         payload of a peer model) is cached: a model pulled by k scorers and
         then for aggregation is deserialized once on this node
-        (``stats['decodes']``); the other touches are ``decode_hits``."""
+        (``stats['decodes']``); the other touches are ``decode_hits``.
+        Bounded LRU keyed on ``(cid, resolved_base)``."""
         with self._lock:
             hit = self._cache_lookup(cid)
             if hit is not None:
@@ -226,17 +356,74 @@ class StoreNode:
             self._cache_insert(cid, obj)
         return obj
 
+    def has_decoded(self, cid: str) -> bool:
+        with self._lock:
+            return cid in self._decoded_cids
+
+    def warm_decoded(self, cid: str, decoder: Callable):
+        """Prefetch landing: decode a locally-present CID into the cache (on
+        the node's device) and mark it, so the eventual consumer's hit
+        counts as a prefetch hit. If something already decoded it, leave the
+        attribution alone."""
+        with self._lock:
+            if cid in self._decoded_cids:
+                return
+        data = self.read_local(cid)
+        if data is None:
+            return
+        obj = decoder(deserialize_pytree(data))
+        with self._lock:
+            if cid not in self._decoded_cids:
+                self._cache_insert(cid, obj)
+                self._prefetched.add(cid)
+
+    def pin(self, cid: str):
+        self._pins.add(cid)
+
+    def gc(self):
+        """Drop unpinned blocks (IPFS gc)."""
+        with self._lock:
+            for cid in list(self._blocks):
+                if cid not in self._pins:
+                    del self._blocks[cid]
+
 
 class StoreNetwork:
-    """Fully-connected private swarm of silo store nodes."""
+    """Fully-connected private swarm of silo store nodes. Attach a
+    ``repro_torch.net.NetFabric`` to make transfers cost simulated time."""
 
-    def __init__(self):
+    def __init__(self, fabric=None):
         self.nodes: Dict[str, StoreNode] = {}
+        self.fabric = fabric
 
-    def add_node(self, node_id: str, device) -> StoreNode:
-        node = StoreNode(node_id, device)
+    def attach_fabric(self, fabric) -> None:
+        """Install the WAN fabric; existing nodes and their blocks are
+        registered/published so provider records match reality."""
+        self.fabric = fabric
+        for node in self.nodes.values():
+            fabric.register_node(node.node_id)
+            for cid, chunks in node._blocks.items():
+                fabric.publish(cid, node.node_id,
+                               sum(len(c) for c in chunks))
+
+    def add_node(self, node_id: str, device,
+                 root: Optional[str] = None) -> StoreNode:
+        node = StoreNode(node_id, device, root)
+        node.network = self
         for other in self.nodes.values():
             node.connect(other)
             other.connect(node)
         self.nodes[node_id] = node
+        if self.fabric is not None:
+            self.fabric.register_node(node_id)
+        return node
+
+    def drop_node(self, node_id: str):
+        """Simulate a node failure: disconnect it from the swarm."""
+        node = self.nodes.pop(node_id)
+        for other in self.nodes.values():
+            if node in other._peers:
+                other._peers.remove(node)
+        if self.fabric is not None:
+            self.fabric.node_down(node_id)
         return node

@@ -53,7 +53,7 @@ class Client:
         if "x" not in data:
             raise NotImplementedError(
                 "token-stream clients are not ported yet (ROADMAP.md, "
-                "queue 1 item 9: the LM families)")
+                "queue 1 item 5: the LM families)")
         self.client_id = client_id
         self.model = model
         self.data = data

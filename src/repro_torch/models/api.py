@@ -51,5 +51,5 @@ def build_model(cfg: ModelConfig) -> Model:
     if cfg.family not in _FAMILY_MOD:
         raise NotImplementedError(
             f"model family {cfg.family!r} is not ported yet "
-            "(ROADMAP.md, queue 1 item 9: the LM families)")
+            "(ROADMAP.md, queue 1 item 5: the LM families)")
     return Model(cfg, _FAMILY_MOD[cfg.family])
