@@ -98,9 +98,15 @@ GRAM_ULPS = 1.0                # Gram tolerance, sqrt(N) ulps (check_gram)
 WKV_REL = 1e-5                 # wkv6 tolerance, of max|y| and max|S|
 BF16_ULP = 2.0 ** -7           # one bf16 ulp, relative
 SERVE_ARCH = "rwkv6-1.6b"
+DECODER_ARCH = "qwen3-1.7b"     # the dense decoder family, the CLI default
+# qwen3-1.7b at full width: its parameters and bytes (bf16, vocab padded to
+# 153,600, tied embeddings), as jax.eval_shape of the reference's init counts
+DECODER_PARAMS, DECODER_BYTES = 1_723_982_848, 3_447_965_696
+DECODER_REL = 1e-4             # float32 card vs CPU, of max|output| (below)
 MAIN_N = 62_006                # paper-cnn params (configs/paper_cnn.py)
 LARGE_N = 1 << 28
 WSUM_PAD, GRAM_PAD = 4096, 2048   # the padded widths of the earlier rows
+EDGE_M = 100                   # fedavg_up of 200 edge clients at 0.5
 ACC_TOL = 0.05                 # global accuracy, card vs CPU (see phase 4)
 WARM_S = 0.05                  # warm-up before each CUDA-event block
 # prefill of the two serving requests with the token-serial wkv6 kernel
@@ -238,6 +244,53 @@ def ops_call_profile(name: str, call, kernel: str) -> dict:
             "device_us_per_launch": next(iter(own.values()))["us_per_launch"]}
 
 
+def fedavg_up_row(gen, iters: int, row) -> None:
+    """``weighted_sum`` as an edge fleet's ``fedavg_up`` hands it over:
+    ``fed.aggregator.fedavg_params`` of EDGE_M client models of the paper
+    CNN (a 200-client fleet at participation 0.5) with their sample counts
+    as weights. Above ``wsum.MAX_HOST_M`` the host weights are copied to
+    the card and the kernel reads them there. Held against the plain
+    version and bit for bit against the ordered FMA chain; ``fedavg_params``
+    gives the same bits as the wrapper on the stacked rows."""
+    from repro_torch.fed.aggregator import _normalized, fedavg_params
+    from repro_torch.kernels import ref, wsum
+    M, N = EDGE_M, MAIN_N
+    x = torch.randn((M, N), generator=gen, device="cuda")
+    counts = torch.randint(1, 40, (M,), generator=gen, device="cuda")
+    counts = [float(c) for c in counts.cpu()]
+    w_host = torch.from_numpy(_normalized(counts))
+    w = w_host.cuda()
+    params = [{"w": x[i]} for i in range(M)]
+    got = wsum.weighted_sum(x, w_host)
+    want = ref.weighted_sum(x, w)
+    via = fedavg_params(params, counts)["w"]
+    torch.cuda.synchronize()
+    err = float((got - want).abs().max())
+    scale = float((w.abs()[:, None] * x.abs()).sum(0).max())
+    if not err <= M * 2.0 ** -23 * scale:
+        fail(f"weighted_sum M={M}: max_abs_err {err} (scale {scale})")
+    if not (torch.equal(got, ref.weighted_sum_ordered(x, w))
+            and torch.equal(via, got)):
+        fail(f"weighted_sum M={M}: not the ordered FMA chain, or "
+             "fedavg_params gives other bits")
+    ts = timed({"kernel": lambda: wsum.weighted_sum(x, w_host),
+                "plain": lambda: ref.weighted_sum(x, w),
+                "library": lambda: torch.matmul(w, x),
+                "fedavg_params": lambda: fedavg_params(params, counts)},
+               iters)
+    row("weighted_sum", err, ts["kernel"], ts["plain"], (M + 1) * N * 4,
+        2.0 * M * N, library_ms=ts["library"],
+        check=f"abs err <= M*2^-23*max sum|w x| = "
+              f"{M * 2.0 ** -23 * scale:.3e}; bit-exact with the ordered FMA "
+              "chain; fedavg_params same bits",
+        path=False, M=M, N=N, layout="contiguous",
+        weights="host, copied to the card (M > 64)",
+        fedavg_params_ms=ts["fedavg_params"],
+        later=lambda: ops_call_profile(
+            f"weighted_sum M={M}", lambda: wsum.weighted_sum(x, w_host),
+            "weighted_sum_kernel"))
+
+
 def check_kernels(shape: str, gen, iters: int):
     from repro_torch.kernels import multikrum, ops, q8agg, quant, ref, wsum
     large = shape == "large"
@@ -306,6 +359,9 @@ def check_kernels(shape: str, gen, iters: int):
                   "FMA chain; host w same bits",
             path=path, M=M, N=N, layout="contiguous", **extra)
         del x, got, want
+
+    if not large:
+        fedavg_up_row(gen, iters, row)
 
     # quantize: the int8 wire encode, N padded to 131072
     N = LARGE_N if large else MAIN_N + (-MAIN_N) % ops.QUANT_BLOCK
@@ -1215,13 +1271,254 @@ def sync_vs_async_straggler() -> dict:
 
 
 # --------------------------------------------------------------------------- #
+# Phase 5b: the edge tier
+# --------------------------------------------------------------------------- #
+
+# paper Table 6 configuration C4 (``benchmarks/table6_edge.py``: ``fed``,
+# ``_edge_specs`` and ``_run_hierarchical``): 3 silos, each an EdgeFleet of
+# 20 clients at participation 0.5, NIID alpha 0.5, 4 Sync rounds, seed 2
+C4_ROUNDS = 4
+C4_TRAIN_DELAYS = (1.2, 0.3, 0.0)
+EDGE_KEYS = ("edge_participants", "edge_trained", "edge_skipped",
+             "edge_bytes", "edge_sim_s")
+
+
+def c4_experiment(device: str, rounds: int = C4_ROUNDS):
+    """C4 built on ``device``, every silo at time_scale 0 (host compute
+    stays off the simulated clock, so the card and the CPU see one)."""
+    from repro_torch.config import FedConfig
+    from repro_torch.configs import get_config
+    from repro_torch.core.builder import SiloSpec, build_image_experiment
+    from repro_torch.core.orchestrator import SiloPolicy
+    fed = FedConfig(n_silos=3, clients_per_silo=2, rounds=rounds,
+                    local_epochs=1, mode="sync", scorer="accuracy",
+                    agg_policy="top_k", score_policy="median",
+                    edge_per_silo=20, edge_participation=0.5, edge_epochs=1)
+    specs = [SiloSpec(policy=SiloPolicy("top_k", "mean", 2),
+                      extra_train_delay=d, extra_score_delay=d / 2 + 0.2)
+             for d in C4_TRAIN_DELAYS]
+    orch = build_image_experiment(
+        get_config("paper-cnn"), fed, partition="niid", alpha=0.5,
+        n_train=1200, n_test=400, batch_size=8, silo_specs=specs, seed=2,
+        device=device)
+    for s in orch.silos:
+        s.time_scale = 0.0
+    return orch
+
+
+def edge_summary(orch, ge) -> dict:
+    return {"picks": [[p["owners"] for p in s.pick_log] for s in orch.silos],
+            "ledger_height": orch.ledger.height,
+            "edge": [[[m[k] for k in EDGE_KEYS] for m in s.metrics]
+                     for s in orch.silos],
+            "global_accuracy": {k: v["accuracy"] for k, v in ge.items()}}
+
+
+def sync_edge_phase(tree) -> dict:
+    """``sync-edge``: C4 on the card with the launch counts set to 0 just
+    before it, then the same run on the CPU: equal picks, ledger height and
+    every round's edge participants, trained and skipped clients, bytes and
+    simulated seconds; global accuracy within ACC_TOL; ``weighted_sum``
+    launched once a silo and round (``fedavg_up``) and no other kernel."""
+    from repro_torch.core.builder import global_eval
+    from repro_torch.kernels import _build
+    orch = c4_experiment("cuda")
+    torch.cuda.synchronize()
+    _build.reset_launches()
+    t0 = time.perf_counter()
+    orch.run(C4_ROUNDS)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = _build.launch_counts()
+    summ = edge_summary(orch, global_eval(orch))
+    line = {"phase": "sync-edge", "config": "paper Table 6 C4",
+            "rounds": C4_ROUNDS, "wall_s": wall,
+            "wall_s_per_round": wall / C4_ROUNDS, "launches": launches,
+            "edge_keys": EDGE_KEYS, **summ,
+            "skipped_empty": [s.cluster.edge_fleet.stats["skipped_empty"]
+                              for s in orch.silos],
+            "sim_end_s": orch.env.now}
+    print(json.dumps(line), flush=True)
+    if not orch.ledger.verify() or any(s.rounds_done != C4_ROUNDS
+                                       for s in orch.silos):
+        fail("sync-edge: ledger or rounds")
+    for s in orch.silos:
+        if any(t.device.type != "cuda" for t in tree.leaves(s.cluster.params)):
+            fail(f"sync-edge, {s.silo_id}: params left the card")
+    fedavg_ups = sum(1 for s in orch.silos for m in s.metrics
+                     if m["edge_trained"] > 0)
+    others = {k: v for k, v in launches.items() if k != "weighted_sum" and v}
+    if fedavg_ups != 3 * C4_ROUNDS or launches["weighted_sum"] != fedavg_ups \
+            or others:
+        fail(f"sync-edge: weighted_sum launched {launches['weighted_sum']} "
+             f"times for {fedavg_ups} fedavg_up calls (want one a silo and "
+             f"round, {3 * C4_ROUNDS}); other kernels {others}")
+    cpu = c4_experiment("cpu")
+    t0 = time.perf_counter()
+    cpu.run(C4_ROUNDS)
+    ref = edge_summary(cpu, global_eval(cpu))
+    print(json.dumps({"phase": "sync-edge-cross-check-cpu",
+                      "cpu_wall_s": time.perf_counter() - t0,
+                      "equal": {k: summ[k] == ref[k] for k in
+                                ("picks", "ledger_height", "edge")},
+                      "cpu_global_accuracy": ref["global_accuracy"]}),
+          flush=True)
+    for k in ("picks", "ledger_height", "edge"):
+        if summ[k] != ref[k]:
+            fail(f"sync-edge: {k} {summ[k]} on the card, {ref[k]} on the CPU")
+    if not any(p for ps in summ["picks"] for p in ps):
+        fail("sync-edge: no silo merged a peer")
+    for sid, v in summ["global_accuracy"].items():
+        if abs(v - ref["global_accuracy"][sid]) > ACC_TOL:
+            fail(f"sync-edge, {sid}: global accuracy {v} on the card vs "
+                 f"{ref['global_accuracy'][sid]} on the CPU")
+    return {"launches": launches, "wall_s": wall}
+
+
+def profile_edge_round() -> dict:
+    """One C4 round on the card under ``torch.profiler``: the device's busy
+    share of its wall time and the kernels that fill it. Its launches are
+    not counted toward the path."""
+    from torch.profiler import ProfilerActivity, profile
+    orch = c4_experiment("cuda", rounds=1)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        orch.run(1)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    kern = [e for e in prof.key_averages()
+            if e.device_type == torch.autograd.DeviceType.CUDA]
+    busy_us = sum(e.self_device_time_total for e in kern)
+    top = sorted(kern, key=lambda e: -e.self_device_time_total)[:8]
+    ws = [e for e in kern if "::weighted_sum_kernel" in e.key]
+    return {"phase": "profile-sync-edge", "config": "paper Table 6 C4",
+            "rounds": 1, "wall_s": wall, "device_busy_s": busy_us / 1e6,
+            "device_idle_share": 1.0 - busy_us / 1e6 / wall,
+            "device_kernels": len(kern),
+            "device_launches": sum(e.count for e in kern),
+            "weighted_sum_kernel": {
+                "count": sum(e.count for e in ws),
+                "ms": sum(e.self_device_time_total for e in ws) / 1e3},
+            "top_kernels": [{"name": e.key[:80], "count": e.count,
+                             "ms": e.self_device_time_total / 1e3}
+                            for e in top]}
+
+
+def sync_edge_light() -> dict:
+    """``sync-edge-light``: the reference test's three-tier topology
+    (``tests/test_edge.py::test_three_tier_sync_run_with_light_clients``)
+    on the card with the launch counts set to 0 just before it: 3 silos, 2
+    Sync rounds, 12 edge clients a silo at participation 0.25, light
+    clients over ``wan-heterogeneous``, time_scale 0; held to that test's
+    invariants."""
+    from repro_torch.config import FedConfig, NetConfig
+    from repro_torch.configs import get_config
+    from repro_torch.core.builder import build_image_experiment
+    from repro_torch.kernels import _build
+    fed = FedConfig(n_silos=3, clients_per_silo=2, rounds=2, local_epochs=1,
+                    mode="sync", scorer="accuracy", agg_policy="all",
+                    score_policy="median", edge_per_silo=12,
+                    edge_participation=0.25, edge_light_clients=True,
+                    net=NetConfig(preset="wan-heterogeneous"))
+    orch = build_image_experiment(get_config("paper-cnn"), fed, n_train=400,
+                                  n_test=100, batch_size=4, seed=0,
+                                  device="cuda")
+    for s in orch.silos:
+        s.time_scale = 0.0
+    torch.cuda.synchronize()
+    _build.reset_launches()
+    t0 = time.perf_counter()
+    orch.run(2)
+    orch.env.run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    hub = orch.light_sync
+    vs = hub.light_vs_full()
+    line = {"phase": "sync-edge-light", "rounds": 2, "wall_s": wall,
+            "launches": _build.launch_counts(),
+            "light_clients": len(hub.clients), "light": dict(hub.stats),
+            "light_vs_full": vs,
+            "edge_bytes": orch.fabric.stats["edge_bytes"],
+            "light_bytes": orch.fabric.stats["light_bytes"],
+            "rounds_done": [s.rounds_done for s in orch.silos],
+            "converged": orch.chain.converged()}
+    print(json.dumps(line), flush=True)
+    ok = (len(hub.clients) == 36 and hub.stats["proofs_verified"] > 0
+          and hub.stats["proofs_failed"] == 0
+          and hub.stats["headers_rejected"] == 0
+          and 0 < vs["light_bytes"] < vs["full_replay_bytes"]
+          and vs["ratio"] <= 0.10 and line["edge_bytes"] > 0
+          and line["light_bytes"] > 0 and line["rounds_done"] == [2, 2, 2]
+          and all("edge_participants" in m for s in orch.silos
+                  for m in s.metrics)
+          and line["launches"]["weighted_sum"] > 0)
+    if not ok:
+        fail(f"sync-edge-light: the reference test's invariants: {line}")
+    return line
+
+
+def hbfl_phase() -> dict:
+    """``hbfl``: ``run_hbfl`` and ``run_no_collab`` over C4's clusters for
+    2 rounds, each with the launch counts set to 0 just before it, on the
+    card and on the CPU: the same history shapes, every evaluation's
+    accuracy within ACC_TOL of the CPU's, and ``weighted_sum`` once a silo
+    and round (the edge FedAvg up) plus once a round for the trusted
+    aggregator in ``run_hbfl``."""
+    from repro_torch.fed.hbfl import run_hbfl, run_no_collab
+    from repro_torch.kernels import _build
+    out = {}
+    for name, fn, want in (("hbfl", run_hbfl, 2 * (3 + 1)),
+                           ("no-collab", run_no_collab, 2 * 3)):
+        runs = {}
+        for device in ("cuda", "cpu"):
+            clusters = [s.cluster for s in c4_experiment(device).silos]
+            if device == "cuda":
+                torch.cuda.synchronize()
+                _build.reset_launches()
+            t0 = time.perf_counter()
+            res = fn(clusters, 2)
+            if device == "cuda":
+                torch.cuda.synchronize()
+                launches = _build.launch_counts()
+            runs[device] = (res, time.perf_counter() - t0)
+        (res, wall), (ref, cpu_wall) = runs["cuda"], runs["cpu"]
+        acc = [{k: {sid: ev["accuracy"] for sid, ev in h[k].items()}
+                for k in h if k != "round"} for h in res["history"]]
+        acc_cpu = [{k: {sid: ev["accuracy"] for sid, ev in h[k].items()}
+                    for k in h if k != "round"} for h in ref["history"]]
+        line = {"phase": name, "rounds": 2, "wall_s": wall,
+                "cpu_wall_s": cpu_wall, "launches": launches,
+                "keys": sorted(res), "accuracy": acc, "cpu_accuracy": acc_cpu}
+        print(json.dumps(line), flush=True)
+        if sorted(res) != sorted(ref) or [sorted(h) for h in res["history"]] \
+                != [sorted(h) for h in ref["history"]]:
+            fail(f"{name}: history shape differs from the CPU run")
+        for a, b in zip(acc, acc_cpu):
+            for k in a:
+                for sid in a[k]:
+                    if abs(a[k][sid] - b[k][sid]) > ACC_TOL:
+                        fail(f"{name} {k} {sid}: accuracy {a[k][sid]} on the "
+                             f"card vs {b[k][sid]} on the CPU")
+        others = {k: v for k, v in launches.items()
+                  if k != "weighted_sum" and v}
+        if launches["weighted_sum"] != want or others:
+            fail(f"{name}: launches {launches}, want weighted_sum {want}")
+        out[name] = line
+    return out
+
+
+# --------------------------------------------------------------------------- #
 # Phase 6: serving RWKV-6 1.6B
 # --------------------------------------------------------------------------- #
 
 def serve_request(model, params, batch: int, prompt_len: int, gen: int,
                   seed: int) -> dict:
     """One batched request through ``serve`` with the launch counts set to
-    0 just before it; its timings, peak memory and ``wkv6`` launches."""
+    0 just before it; its timings, peak memory and kernel launches: RWKV-6
+    launches ``wkv6`` once a layer a prefill and nothing else, a dense
+    decoder none of the nine kernels."""
     from repro_torch.kernels import _build
     from repro_torch.launch.serve import serve
     g = torch.Generator(device="cuda").manual_seed(seed)
@@ -1232,45 +1529,57 @@ def serve_request(model, params, batch: int, prompt_len: int, gen: int,
     _build.reset_launches()
     res = serve(model, params, prompts, gen, "cuda")
     launches = _build.launch_counts()
-    line = {"phase": f"serve-{SERVE_ARCH}", "batch": batch,
+    arch = model.cfg.arch_id
+    want = {k: 0 for k in launches}
+    if model.cfg.family == "ssm":
+        want["wkv6"] = model.cfg.n_layers
+    line = {"phase": f"serve-{arch}", "batch": batch,
             "prompt_len": prompt_len, "gen": gen,
             "prefill_ms": res["prefill_s"] * 1e3,
             "prefill_tok_s": batch * prompt_len / res["prefill_s"],
             "decode_ms_per_token": res["decode_s"] / max(1, gen - 1) * 1e3,
             "decode_tok_s": batch * (gen - 1) / max(res["decode_s"], 1e-9),
             "peak_mem_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
+            "launches": launches,
+            "launches_as_expected": launches == want,
             "wkv6_launches": launches["wkv6"],
             "other_launches": sum(v for k, v in launches.items()
                                   if k != "wkv6"),
             "finite": res["finite"], "ids_head": res["ids"][0, :8].tolist(),
             "device": torch.cuda.get_device_name(0)}
+    if model.cfg.family != "ssm":
+        line["note"] = ("no TPU kernel stands behind a dense decoder: none "
+                        "of the nine ported kernels runs on this path")
     print(json.dumps(line), flush=True)
     if not res["finite"]:
-        fail(f"serve {batch}x{prompt_len}: non-finite logits")
-    if launches["wkv6"] != model.cfg.n_layers or line["other_launches"]:
-        fail(f"serve {batch}x{prompt_len}: wkv6 launched "
-             f"{launches['wkv6']} times, want {model.cfg.n_layers} (one a "
-             f"layer, one prefill, none from decode steps); others "
-             f"{line['other_launches']}")
+        fail(f"serve {arch} {batch}x{prompt_len}: non-finite logits")
+    if launches != want:
+        fail(f"serve {arch} {batch}x{prompt_len}: launches {launches}, want "
+             f"{want} (RWKV-6: wkv6 once a layer, one prefill, none from "
+             "decode steps)")
     return line
 
 
-def serve_cli() -> dict:
+def serve_cli(arch: str) -> dict:
     """The user's entry point, ``python -m repro_torch.launch.serve --arch
-    rwkv6-1.6b --preset full`` (its own seeded init on the card), with the
-    launch counts set to 0 just before it."""
+    ARCH --preset full`` (its own seeded init on the card), 4 x 64 + 4,
+    with the launch counts set to 0 just before it."""
     from repro_torch.configs import get_config
     from repro_torch.kernels import _build
     from repro_torch.launch.serve import main as serve_main
-    n_layers = get_config(SERVE_ARCH).n_layers
+    cfg = get_config(arch)
+    want_wkv6 = cfg.n_layers if cfg.family == "ssm" else 0
     _build.reset_launches()
-    ids = serve_main(["--arch", SERVE_ARCH, "--preset", "full", "--batch",
+    ids = serve_main(["--arch", arch, "--preset", "full", "--batch",
                       "4", "--prompt-len", "64", "--gen", "4"])
-    line = {"phase": f"serve-cli-{SERVE_ARCH}", "ids_shape": list(ids.shape),
+    line = {"phase": f"serve-cli-{arch}", "ids_shape": list(ids.shape),
             "launches": _build.launch_counts()}
     print(json.dumps(line), flush=True)
-    if ids.shape != (4, 4) or line["launches"]["wkv6"] != n_layers:
-        fail(f"serve CLI: ids {ids.shape}, launches {line['launches']}")
+    torch.cuda.empty_cache()
+    if ids.shape != (4, 4) or line["launches"]["wkv6"] != want_wkv6 or sum(
+            v for k, v in line["launches"].items() if k != "wkv6"):
+        fail(f"serve CLI {arch}: ids {ids.shape}, launches "
+             f"{line['launches']}")
     return line
 
 
@@ -1341,6 +1650,71 @@ def cross_check_serving_on_cpu(steps: int = 8) -> dict:
     return line
 
 
+def cross_check_decoder_on_cpu(steps: int = 8) -> dict:
+    """qwen3-1.7b's full width at depth 2, float32 with TF32 off, params
+    drawn on the card and copied to the CPU, 4 x 64 prompts: prefill logits
+    and KV cache, then the cache padded to 64 + ``steps`` slots as
+    ``serve`` pads it and ``steps`` decode steps fed the card's greedy
+    tokens (logits each step, the cache after the last), on the card and
+    on the CPU (both plain PyTorch). Tolerance: DECODER_REL of each
+    output's largest magnitude: float32 sums of up to 6,144 terms in
+    another order (cuBLAS against the CPU's BLAS) through two layers; the
+    CPU tests hold the port to 1e-5 of it against the reference."""
+    from repro_torch.config import replace
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_model
+    from repro_torch.tree import tree_map
+    if torch.backends.cuda.matmul.allow_tf32:
+        fail("decoder cross-check: TF32 is on")
+    cfg = replace(get_config(DECODER_ARCH), n_layers=2,
+                  param_dtype="float32", compute_dtype="float32")
+    model = build_model(cfg)
+    g = torch.Generator(device="cuda").manual_seed(1)
+    params = model.init(g, "cuda")
+    prompts = torch.randint(0, cfg.vocab_size, (4, 64), generator=g,
+                            device="cuda")
+
+    def run(p, dev, feed=None):
+        outs, fed = [], []
+        with torch.inference_mode():
+            logits, cache = model.prefill(p, {"tokens": prompts.to(dev)})
+            outs += [logits, cache["k"], cache["v"]]
+            full = model.init_cache(4, 64 + steps, dev)
+            for name in full:
+                full[name][:, :, :64] = cache[name]
+            cache = full
+            tok = torch.argmax(logits[:, -1], dim=-1)
+            for i in range(steps):
+                tok = tok if feed is None else feed[i].to(dev)
+                fed.append(tok)
+                logits, cache = model.decode_step(
+                    p, {"token": tok, "pos": 64 + i}, cache)
+                outs.append(logits)
+                tok = torch.argmax(logits, dim=-1)
+            outs += [cache["k"], cache["v"]]
+        return [o.float().cpu() for o in outs], fed
+
+    card, feed = run(params, "cuda")
+    cpu, _ = run(tree_map(lambda t: t.cpu(), params), "cpu", feed)
+    worst, errs = 0.0, []
+    for i, (a, b) in enumerate(zip(card, cpu)):
+        top = float(b.abs().max())
+        err = float((a - b).abs().max())
+        errs.append(err / top)
+        worst = max(worst, err / top / DECODER_REL)
+        if not (torch.isfinite(a).all() and err <= DECODER_REL * top):
+            fail(f"decoder cross-check output {i}: card vs CPU {err}, "
+                 f"tol {DECODER_REL * top}")
+    line = {"phase": "serve-decoder-cross-check-cpu", "arch": DECODER_ARCH,
+            "n_layers": 2, "dtype": "float32", "tf32": False, "batch": 4,
+            "prompt_len": 64, "decode_steps": steps, "outputs": len(card),
+            "outputs_are": "prefill logits, k, v; logits a step; k, v last",
+            "err_of_max": errs, "worst_err_of_tol": worst,
+            "tol": f"{DECODER_REL} x max|cpu|, per output"}
+    print(json.dumps(line), flush=True)
+    return line
+
+
 def profile_serving(model, params) -> dict:
     """One 4 x 64 + 8 request on the card under ``torch.profiler``: the
     device's busy share of the request's wall time and the kernels that
@@ -1361,13 +1735,14 @@ def profile_serving(model, params) -> dict:
     busy_us = sum(e.self_device_time_total for e in kern)
     top = sorted(kern, key=lambda e: -e.self_device_time_total)[:8]
     wkv = [e for e in kern if "wkv6_kernel" in e.key]
-    return {"phase": f"profile-serve-{SERVE_ARCH}", "batch": 4,
+    return {"phase": f"profile-serve-{model.cfg.arch_id}", "batch": 4,
             "prompt_len": 64, "gen": 8, "wall_s": wall,
             "prefill_ms": res["prefill_s"] * 1e3,
             "decode_ms_per_token": res["decode_s"] / 7 * 1e3,
             "device_busy_s": busy_us / 1e6,
             "device_idle_share": 1.0 - busy_us / 1e6 / wall,
             "device_kernels": len(kern),
+            "device_launches": sum(e.count for e in kern),
             "wkv6_kernel": {"count": sum(e.count for e in wkv),
                             "ms": sum(e.self_device_time_total
                                       for e in wkv) / 1e3},
@@ -1482,6 +1857,12 @@ def main() -> int:
     krum_wan = sync_multikrum_wan()
     sync_vs_async_straggler()
 
+    # phase 5b: the edge tier (paper Table 6 C4, light clients, HBFL)
+    edge = sync_edge_phase(tree)
+    print(json.dumps(profile_edge_round()), flush=True)
+    sync_edge_light()
+    hbfl_phase()
+
     # phase 6: serve RWKV-6 1.6B at full width, then the depth-2 CPU check
     from repro_torch.configs import get_config
     from repro_torch.core.builder import resolve_device
@@ -1507,10 +1888,34 @@ def main() -> int:
         "earlier": "the token-serial wkv6 kernel, NVIDIA H100 80GB HBM3, "
                    "700.00 W, chip_smoke.py"}), flush=True)
     print(json.dumps(profile_serving(model, params)), flush=True)
-    serve_cli()
+    serve_cli(SERVE_ARCH)
     del params
     torch.cuda.empty_cache()
     cross_check_serving_on_cpu()
+
+    # phase 6, continued: serve qwen3-1.7b (the dense decoder family) at
+    # full width, then its depth-2 float32 CPU check
+    model = build_model(get_config(DECODER_ARCH))
+    t0 = time.perf_counter()
+    params = model.init(torch.Generator(device="cuda").manual_seed(0), "cuda")
+    torch.cuda.synchronize()
+    n_params = sum(t.numel() for t in tree.leaves(params))
+    n_bytes = sum(t.numel() * t.element_size() for t in tree.leaves(params))
+    print(json.dumps({"phase": f"init-{DECODER_ARCH}", "params": n_params,
+                      "bytes": n_bytes, "init_s": time.perf_counter() - t0}),
+          flush=True)
+    if (n_params, n_bytes) != (DECODER_PARAMS, DECODER_BYTES):
+        fail(f"{DECODER_ARCH}: {n_params} params, {n_bytes} bytes, want "
+             f"{DECODER_PARAMS}, {DECODER_BYTES}")
+    serve(model, params, torch.zeros((4, 64), dtype=torch.long,
+                                     device="cuda"), 2, "cuda")   # warm-up
+    serve_request(model, params, 4, 64, 32, seed=20)
+    serve_request(model, params, 4, 1100, 8, seed=21)
+    print(json.dumps(profile_serving(model, params)), flush=True)
+    del params
+    torch.cuda.empty_cache()
+    serve_cli(DECODER_ARCH)
+    cross_check_decoder_on_cpu()
 
     # phase 7: the kernels line and the result line
     # row name -> (the kernels line's name, source, the TPU kernel, the
@@ -1561,6 +1966,7 @@ def main() -> int:
                             async_wan["launches"][counter],
                         "launches_multikrum_wan":
                             krum_wan["launches"][counter],
+                        "launches_edge": edge["launches"][counter],
                         "max_abs_err": r["max_abs_err"], "ms": r["kernel_ms"],
                         "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
                         "bound_by": r["bound_by"],

@@ -1,6 +1,8 @@
 """Batched serving example on the PyTorch/CUDA port: prefill + greedy
-decode with the recurrent state — the torch twin of examples/serve_model.py.
-Runs on the GPU by default; pass ``--device cpu`` for the CPU.
+decode with the recurrent state (``rwkv6-1.6b``, the default) or the KV
+cache of a dense decoder (``qwen3-1.7b``, ``gemma-2b``, ...) — the torch
+twin of examples/serve_model.py. Runs on the GPU by default; pass
+``--device cpu`` for the CPU.
 
   PYTHONPATH=src python examples/serve_model_torch.py [ARCH] [--device cpu]
 """

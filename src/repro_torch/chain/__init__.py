@@ -18,6 +18,9 @@ adapter    -- re-executable contract execution; LedgerView (the Ledger API
               bound to one replica: submit-via-local, read-your-replica)
 merkle     -- deterministic Merkle tx trees (header ``txroot``), inclusion
               proofs + verification
+light      -- header-only light clients for edge nodes: debounced head
+              announcements, per-tx inclusion proofs served by the silo's
+              full replica, ctl-lane byte accounting
 """
 from repro_torch.chain.adapter import ContractExecutor, LedgerView
 from repro_torch.chain.forkchoice import (better, common_ancestor,
@@ -30,10 +33,15 @@ from repro_torch.chain.replica import (GENESIS, HEADER_WIRE_NBYTES,
                                        ChainReplica, ReplicaSnapshot, Tx,
                                        header_hash, load_snapshot)
 from repro_torch.chain.sync import ChainNetwork
+from repro_torch.chain.light import (LightClient, LightSync,
+                                     build_inclusion_proof, find_latest_txid,
+                                     full_replay_nbytes)
 
 __all__ = ["ChainNetwork", "ChainReplica", "LedgerView", "ContractExecutor",
            "Block", "Tx", "GENESIS", "ReplicaSnapshot", "load_snapshot",
            "WAL_FORMAT_VERSION", "HEADER_WIRE_NBYTES", "header_hash",
-           "better", "common_ancestor", "total_difficulty", "difficulty",
+           "LightClient", "LightSync", "build_inclusion_proof",
+           "find_latest_txid", "full_replay_nbytes", "better",
+           "common_ancestor", "total_difficulty", "difficulty",
            "in_turn_sealer", "validate_seal", "equivocating_twin",
            "DIFF_IN_TURN", "DIFF_OUT_OF_TURN"]

@@ -13,11 +13,13 @@ from typing import Dict, Optional, Sequence
 import torch
 
 from repro_torch.config import FedConfig, ModelConfig
+from repro_torch.core import wire
 from repro_torch.core.orchestrator import (AsyncOrchestrator,
                                            BaseOrchestrator, SiloPolicy,
-                                           SyncOrchestrator, check_ported)
+                                           SyncOrchestrator)
 from repro_torch.data.partition import dirichlet_partition, iid_partition
 from repro_torch.data.synthetic import make_image_dataset
+from repro_torch.edge.fleet import EdgeFleet
 from repro_torch.fed.client import Client
 from repro_torch.fed.cluster import Cluster
 from repro_torch.models import build_model
@@ -50,16 +52,43 @@ def resolve_device(device=None) -> torch.device:
     return dev
 
 
+def _build_edge_tier(silo_id: str, model, x, y, fed: FedConfig, *,
+                     edge_alpha: float, batch_size: int, lr: float,
+                     seed: int, device):
+    """Shard one silo's training data across its edge fleet.
+
+    Each of ``fed.edge_per_silo`` edge clients holds a Dirichlet shard of
+    the silo's own shard (``min_size=0``: a shard may be empty or smaller
+    than a batch; the fleet skips such a client) and trains on the silo's
+    device; the fleet FedAvgs up at the silo before the cross-silo round."""
+    shards = dirichlet_partition(y, fed.edge_per_silo, edge_alpha,
+                                 seed=seed + 31, min_size=0)
+    clients = [Client(f"{silo_id}/edge{j}", model,
+                      {"x": x[p], "y": y[p]}, device=device,
+                      batch_size=batch_size, lr=lr, seed=seed * 1000 + j)
+               for j, p in enumerate(shards)]
+    fleet = EdgeFleet(silo_id, clients,
+                      participation=fed.edge_participation,
+                      epochs=fed.edge_epochs, seed=seed)
+    return clients, fleet
+
+
 def build_image_experiment(model_cfg: ModelConfig, fed: FedConfig, *,
                            partition: str = "niid", alpha: float = 0.5,
+                           edge_alpha: float = 1.0,
                            n_train: int = 3000, n_test: int = 600,
                            batch_size: int = 32, lr: float = 0.01,
                            silo_specs: Optional[Sequence[SiloSpec]] = None,
                            seed: int = 0, device=None):
     """The paper's CIFAR-like workload: one model config, n_silos clusters of
     clients_per_silo clients each, IID or Dirichlet-NIID partitioned, on
-    ``device`` (default: the CUDA device)."""
-    check_ported(fed)
+    ``device`` (default: the CUDA device).
+
+    With ``fed.edge_per_silo > 0`` each silo's shard is instead
+    Dirichlet-split (``edge_alpha``) across an
+    :class:`~repro_torch.edge.fleet.EdgeFleet` of that many simulated edge
+    devices — the hierarchical (multilevel) mode."""
+    wire.resolve_method(fed.compression)   # fail before building anything
     dev = resolve_device(device)
     data = make_image_dataset(n_classes=model_cfg.vocab_size, n_train=n_train,
                               n_test=n_test, seed=seed)
@@ -84,13 +113,21 @@ def build_image_experiment(model_cfg: ModelConfig, fed: FedConfig, *,
     model = build_model(model_cfg)
     for i in range(fed.n_silos):
         spec = specs[i]
-        clients = []
-        for j in range(fed.clients_per_silo):
-            p = parts[i * fed.clients_per_silo + j]
-            clients.append(Client(
-                f"silo{i}/client{j}", model, {"x": x[p], "y": y[p]},
-                device=dev, batch_size=batch_size, lr=lr,
-                seed=seed * 100 + i * 10 + j))
+        sp = silo_parts[i]
+        fleet = None
+        if fed.edge_per_silo > 0:
+            clients, fleet = _build_edge_tier(
+                f"silo{i}", model, x[sp], y[sp], fed,
+                edge_alpha=edge_alpha, batch_size=batch_size, lr=lr,
+                seed=seed * 100 + i, device=dev)
+        else:
+            clients = []
+            for j in range(fed.clients_per_silo):
+                p = parts[i * fed.clients_per_silo + j]
+                clients.append(Client(
+                    f"silo{i}/client{j}", model, {"x": x[p], "y": y[p]},
+                    device=dev, batch_size=batch_size, lr=lr,
+                    seed=seed * 100 + i * 10 + j))
         tp = test_parts[i]
         # common init across silos (seed) — FedAvg across independently
         # initialized nets is destructive (permutation misalignment)
@@ -98,7 +135,8 @@ def build_image_experiment(model_cfg: ModelConfig, fed: FedConfig, *,
                           test_data={"x": xt[tp], "y": yt[tp]}, device=dev,
                           server_opt=spec.server_opt,
                           local_epochs=fed.local_epochs,
-                          byzantine=spec.byzantine, seed=seed)
+                          byzantine=spec.byzantine, seed=seed,
+                          edge_fleet=fleet)
         orch.add_silo(cluster, policy=spec.policy,
                       extra_train_delay=spec.extra_train_delay,
                       extra_score_delay=spec.extra_score_delay)

@@ -18,8 +18,10 @@ goes via the submitter's *local* replica (sealed immediately, gossiped as
 charged fabric transfers) and every read is read-your-replica — stale
 during partitions, reconciled by fork choice + contract re-execution after
 the heal. A tx that reverts against a stale local replica retries after a
-short resync delay. Not ported yet (ROADMAP.md, queue 1 item 4): the edge
-tier, which raises ``NotImplementedError``.
+short resync delay. With ``FedConfig.edge_per_silo`` every silo trains
+through its ``EdgeFleet`` (``repro_torch.edge``), whose simulated cost
+enters the silo's training window; with ``edge_light_clients`` the sampled
+edge nodes light-verify their silo's submission (``chain.LightSync``).
 """
 from __future__ import annotations
 
@@ -59,19 +61,6 @@ ORCH_NODE = "orchestrator"   # the engine's own chain replica / tx sender
 CHAIN_RETRY_S = 0.25         # resubmit delay after a stale-replica revert
 CHAIN_RETRIES = 8            # bounded: 8 x 0.25s covers any preset's RTT
 COLLUDE_SCORE = 0.99         # the inflated score a colluding clique submits
-
-
-def _not_ported(what: str, item: str) -> NotImplementedError:
-    return NotImplementedError(f"{what} is not ported yet (ROADMAP.md, "
-                               f"queue 1 {item})")
-
-
-def check_ported(fed: FedConfig) -> None:
-    """Refuse the configurations whose code paths later slices port."""
-    if fed.edge_per_silo > 0 or fed.edge_light_clients:
-        raise _not_ported("the edge tier (edge_per_silo, "
-                          "edge_light_clients)", "item 4, edge/fleet.py")
-    wire.resolve_method(fed.compression)
 
 
 class SiloRuntime:
@@ -118,6 +107,9 @@ class SiloRuntime:
         self._rng = random.Random(cluster.silo_id)
         self._flat_spec = None  # cached flatten spec of this config's params
         self._announces = 0     # envelopes announced (keyframe cadence)
+        # bound by the orchestrator when fed.edge_light_clients: the hub
+        # through which this silo's edge fleet follows the chain
+        self.light_sync = None
 
     # ------------------------------------------------------------------ #
     @property
@@ -267,10 +259,20 @@ class SiloRuntime:
         t0 = time.perf_counter()
         m = self.cluster.train_round()
         compute = (time.perf_counter() - t0) * self.time_scale
+        fleet = self.cluster.edge_fleet
+        # hierarchical mode: the edge tier's simulated cost (slowest sampled
+        # device's down+train+up path) enters the clock alongside the
+        # silo-side compute; sampled clients are the awake set for head
+        # pushes until the next round's draw
+        edge_s = m.get("edge_sim_s", 0.0)
+        if fleet is not None and self.light_sync is not None:
+            self.light_sync.set_awake(
+                self.silo_id, [fleet.clients[j].client_id
+                               for j in fleet.last_participants])
         # WAN time spent pulling peer models for this round's merge enters
         # the simulated clock here (network charge is not time_scale'd)
         net_wait = self.store.drain_transfer_time()
-        duration = compute + self.extra_train_delay + net_wait
+        duration = compute + edge_s + self.extra_train_delay + net_wait
         tr = self.env.tracer
         t0_sim = self.env.now
         track = f"{self.silo_id}/phases"
@@ -279,8 +281,8 @@ class SiloRuntime:
             # stalls the head of this round's window
             tr.span_at("phase.fetch-stall", track, t0_sim, t0_sim + net_wait,
                        round=self.rounds_done + 1)
-        sp = tr.begin("phase.train", track, t0_sim,
-                      round=self.rounds_done + 1)
+        sp = tr.begin("phase.edge" if fleet is not None else "phase.train",
+                      track, t0_sim, round=self.rounds_done + 1)
         inc = self.incarnation
 
         def finish():
@@ -307,6 +309,17 @@ class SiloRuntime:
             # it in tx_submit_model): the liveness signal the deadline-based
             # scorer reassignment keys on (paper §3.2)
             self._submit("submit_model", cid=cid, _retries=CHAIN_RETRIES)
+            if self.light_sync is not None:
+                # the round's sampled edge clients light-verify that their
+                # silo's submission landed: header + Merkle inclusion proof
+                # round-trips on the ctl lane, never full block replay
+                lcs = None
+                if fleet is not None:
+                    lcs = [self.light_sync.clients[nid] for nid in
+                           (fleet.clients[j].client_id
+                            for j in fleet.last_participants)
+                           if nid in self.light_sync.clients]
+                self.light_sync.verify_submission(self.silo_id, clients=lcs)
             on_done(self, cid)
 
         self.env.schedule(duration, finish, f"{self.silo_id}:submit")
@@ -442,7 +455,7 @@ def _rebuild_like(like, flat: Dict[str, np.ndarray]):
 
 class BaseOrchestrator:
     def __init__(self, fed: FedConfig, *, ledger_path: Optional[str] = None):
-        check_ported(fed)
+        wire.resolve_method(fed.compression)   # an unknown method fails here
         self.fed = fed
         # observability bundle: null tracer + registry when fed.obs is unset
         # or disabled, so the hot paths stay no-op
@@ -460,6 +473,7 @@ class BaseOrchestrator:
         self._ledger_path = ledger_path
         self.ledger = None        # Ledger (single-replica) or chain.LedgerView
         self.chain = None         # chain.ChainNetwork in replicated mode
+        self.light_sync = None    # chain.LightSync when fed.edge_light_clients
         self.fabric = None
         self.prefetcher = None
         self.gossip = None
@@ -582,6 +596,26 @@ class BaseOrchestrator:
             self.ledger.attach_contract(self.contract)
             for s in self.silos:
                 s.bind_ledger(self.ledger)
+        # hierarchical edge tier: fleets late-bind the fabric/engine so their
+        # per-round traffic is charged on the silos' access ports
+        fleets = [(s, s.cluster.edge_fleet) for s in self.silos
+                  if s.cluster.edge_fleet is not None]
+        for s, fleet in fleets:
+            fleet.attach(self.fabric, self.env)
+            self.obs.adopt(fleet.stats)
+        if self.fed.edge_light_clients and self.chain is not None:
+            from repro_torch.chain import LightSync
+            self.light_sync = LightSync(self.env, self.fabric,
+                                        sealers=sealer_ids + [ORCH_NODE])
+            self.light_sync.wire(self.chain)
+            for s, fleet in fleets:
+                for nid in fleet.node_ids:
+                    self.light_sync.add_client(nid, s.silo_id)
+                # devices sleep until their first sampling: no head pushes
+                # to the 90%+ of the fleet that isn't participating yet
+                self.light_sync.set_awake(s.silo_id, [])
+                s.light_sync = self.light_sync
+            self.obs.adopt(self.light_sync.stats)
         for s in self.silos:
             s.register()
 

@@ -28,7 +28,8 @@ class Cluster:
     def __init__(self, silo_id: str, model: Model, clients: List[Client], *,
                  test_data: Dict[str, np.ndarray], device,
                  server_opt: str = "fedavg", local_epochs: int = 2,
-                 byzantine: Optional[str] = None, seed: int = 0):
+                 byzantine: Optional[str] = None, seed: int = 0,
+                 edge_fleet=None):
         self.silo_id = silo_id
         self.model = model
         self.clients = clients
@@ -40,12 +41,26 @@ class Cluster:
         self.params = model.init(torch.Generator().manual_seed(seed),
                                  self.device)
         self.round = 0
+        # hierarchical mode (repro_torch.edge): when set, the silo's trainer
+        # population is an EdgeFleet — train_round delegates to it
+        self.edge_fleet = edge_fleet
 
     # ------------------------------------------------------------------ #
     def train_round(self) -> Dict:
         """One local FL round: fan out to clients, FedAvg their results.
-        Returns metrics; updates self.params (the silo 'local model')."""
+        Returns metrics; updates self.params (the silo 'local model').
+
+        With an ``edge_fleet`` attached this is the *edge tier* instead:
+        sampled edge clients train on their device profiles and FedAvg up
+        here, charged on the fabric when one is wired."""
         t0 = time.perf_counter()
+        if self.edge_fleet is not None:
+            self.params, m = self.edge_fleet.train_round(self.params)
+            self._perturb()
+            self.round += 1
+            m["round"] = self.round
+            m["wall_s"] = time.perf_counter() - t0
+            return m
         results = [c.local_train(self.params, self.local_epochs)
                    for c in self.clients]
         self.params = self.aggregator.aggregate_clients(results)

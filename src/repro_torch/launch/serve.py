@@ -1,10 +1,12 @@
 """Batched serving driver: prefill, then greedy decoding with the model's
-recurrent state. Twin of ``repro.launch.serve`` with its CLI, plus
-``--device`` (default ``cuda``; raises without a card, never falls back to
-the CPU). Only the RWKV-6 family (``ssm``) is ported; the others raise.
+KV cache or recurrent state. Twin of ``repro.launch.serve`` with its CLI,
+plus ``--device`` (default ``cuda``; raises without a card, never falls
+back to the CPU). Serves the ported LM families: the ``dense`` and ``vlm``
+decoders (the default, ``qwen3-1.7b``) and RWKV-6 (``ssm``); the others
+raise ``NotImplementedError``.
 
-  PYTHONPATH=src python -m repro_torch.launch.serve --arch rwkv6-1.6b \\
-      --preset full [--batch 4 --prompt-len 64 --gen 32] [--device cpu]
+  PYTHONPATH=src python -m repro_torch.launch.serve [--arch qwen3-1.7b] \\
+      [--preset full] [--batch 4 --prompt-len 64 --gen 32] [--device cpu]
 """
 from __future__ import annotations
 
@@ -25,8 +27,10 @@ def _sync(device: torch.device) -> None:
 
 def serve(model, params, prompts, gen: int, device):
     """Prefill ``prompts`` [B, S] (ints, any array type), then ``gen - 1``
-    greedy decode steps. The argmax runs over the padded vocabulary, as the
-    reference's does. Returns ``{"ids": int64 numpy [B, gen], "prefill_s",
+    greedy decode steps. An attention cache is padded to ``S + gen`` slots
+    after the prefill, as the reference pads it; a recurrent state is the
+    decode cache as it is. The argmax runs over the padded vocabulary, as
+    the reference's does. Returns ``{"ids": int64 numpy [B, gen], "prefill_s",
     "decode_s", "finite"}``; each time ends in a device synchronize, and
     ``finite`` says every logit of the request was finite."""
     dev = torch.device(device)
@@ -38,8 +42,16 @@ def serve(model, params, prompts, gen: int, device):
                                                "targets": prompts})
         _sync(dev)
         t_prefill = time.perf_counter() - t0
-        # a recurrent state needs no padding to prompt + gen: the prefill
-        # state is the decode cache
+        if model.kind == "decoder":
+            # the decode cache holds prompt + gen slots; the prefill's S
+            # keys (fewer under a sliding window) fill its leading slots
+            full = model.init_cache(B, S + gen, dev)
+            for name, got in cache.items():
+                if full[name].shape != got.shape:
+                    full[name][:, :, :got.shape[2]] = got
+                else:
+                    full[name] = got
+            cache = full
         finite = torch.isfinite(logits).all()
         tok = torch.argmax(logits[:, -1], dim=-1)
         out = [tok]

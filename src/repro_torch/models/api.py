@@ -1,5 +1,5 @@
-"""Uniform model API (twin of ``repro.models.api``): the ``cnn`` and the
-``ssm`` (RWKV-6) families.
+"""Uniform model API (twin of ``repro.models.api``): the ``cnn``, the
+``ssm`` (RWKV-6) and the ``dense`` / ``vlm`` decoder families.
 
 ``build_model(cfg)`` returns a ``Model`` whose methods are plain functions
 of (params, batch), suitable for ``torch.func.grad_and_value`` / ``vmap``:
@@ -18,13 +18,14 @@ Batches:
 from __future__ import annotations
 
 from repro_torch.config import ModelConfig
-from repro_torch.models import cnn, rwkv6
+from repro_torch.models import cnn, rwkv6, transformer
 
 
 class Model:
-    def __init__(self, cfg: ModelConfig, mod):
+    def __init__(self, cfg: ModelConfig, mod, *, kind: str):
         self.cfg = cfg
         self._m = mod
+        self.kind = kind  # 'decoder' | 'ssm' | 'cnn'
 
     def init(self, generator, device):
         return self._m.init_params(generator, self.cfg, device)
@@ -34,7 +35,11 @@ class Model:
 
     # -- serving ------------------------------------------------------------ #
     def init_cache(self, batch: int, seq_len: int, device):
-        return self._m.init_state(self.cfg, batch, device)
+        if self.kind == "cnn":
+            raise ValueError("cnn has no decode path")
+        if self.kind == "ssm":
+            return rwkv6.init_state(self.cfg, batch, device)
+        return self._m.init_cache(self.cfg, batch, seq_len, device)
 
     def prefill(self, params, batch):
         return self._m.prefill(params, batch["tokens"], self.cfg)
@@ -44,12 +49,18 @@ class Model:
                                    cache, self.cfg)
 
 
-_FAMILY_MOD = {"cnn": cnn, "ssm": rwkv6}
+_FAMILY_MOD = {
+    "dense": (transformer, "decoder"),
+    "vlm": (transformer, "decoder"),
+    "ssm": (rwkv6, "ssm"),
+    "cnn": (cnn, "cnn"),
+}
 
 
 def build_model(cfg: ModelConfig) -> Model:
     if cfg.family not in _FAMILY_MOD:
         raise NotImplementedError(
-            f"model family {cfg.family!r} is not ported yet "
-            "(ROADMAP.md, queue 1 item 5: the LM families)")
-    return Model(cfg, _FAMILY_MOD[cfg.family])
+            f"model family {cfg.family!r} is not ported yet (ROADMAP.md, "
+            "queue 1 item 5: moe.py, rglru.py, encdec.py)")
+    mod, kind = _FAMILY_MOD[cfg.family]
+    return Model(cfg, mod, kind=kind)

@@ -112,5 +112,9 @@ def test_server_optimizers_match(name):
 
 
 def test_other_families_wait_for_their_slice():
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tbuild(tget("qwen3-1.7b"))
+    """The families not ported yet (ROADMAP.md queue 1 item 5: moe, hybrid,
+    encdec) raise; the dense and vlm decoders build since their slice."""
+    for arch in ("mixtral-8x7b", "recurrentgemma-9b", "seamless-m4t-medium"):
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            tbuild(tget(arch))
+    assert tbuild(tget("qwen3-1.7b")).kind == "decoder"
