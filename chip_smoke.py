@@ -69,7 +69,15 @@ Phases, in order; any failure exits non-zero and prints no result:
      profile one
      more request; run the CLI entry point once (``main``, 4 x 64 + 4); hold
      the same width at depth 2 against the port on the CPU (prefill logits
-     and state, 8 teacher-forced decode steps);
+     and state, 8 teacher-forced decode steps); then likewise ``qwen3-1.7b``
+     (the dense decoder family) and the last three LM families,
+     ``olmoe-1b-7b`` (MoE), ``recurrentgemma-9b`` (RG-LRU hybrid, also 2 x
+     2200 + 8 across its 2,048-key window) and ``seamless-m4t-medium``
+     (encoder-decoder, stub frames), one after the other with the params
+     freed between: parameter counts held to FAMILY_PARAMS, every logit
+     finite, none of the nine kernels launched, two MoE prefills
+     bit-identical, the CLI once, and a float32 CPU check at reduced depth
+     (FAMILY_CHECK_DEPTH; the MoE's routing compared exactly first);
   7. print the ``kernels`` JSON line (all nine TPU kernels' counterparts,
      with their launches on the main path and on the Async WAN and
      MultiKRUM WAN paths), then the result line.
@@ -98,11 +106,28 @@ GRAM_ULPS = 1.0                # Gram tolerance, sqrt(N) ulps (check_gram)
 WKV_REL = 1e-5                 # wkv6 tolerance, of max|y| and max|S|
 BF16_ULP = 2.0 ** -7           # one bf16 ulp, relative
 SERVE_ARCH = "rwkv6-1.6b"
-DECODER_ARCH = "qwen3-1.7b"     # the dense decoder family, the CLI default
-# qwen3-1.7b at full width: its parameters and bytes (bf16, vocab padded to
-# 153,600, tied embeddings), as jax.eval_shape of the reference's init counts
-DECODER_PARAMS, DECODER_BYTES = 1_723_982_848, 3_447_965_696
 DECODER_REL = 1e-4             # float32 card vs CPU, of max|output| (below)
+# the attention LM families served at full width after RWKV-6: the dense
+# decoder (qwen3-1.7b, the CLI default), the MoE, the RG-LRU hybrid and the
+# encoder-decoder. Their params and bytes (bf16, vocab padded to a multiple
+# of 2,048), as jax.eval_shape of the reference's init counts them; the
+# requests each serves (batch, prompt, gen: the last of recurrentgemma-9b
+# crosses its 2,048-key window); the depth of its float32 card-vs-CPU
+# check (recurrentgemma-9b: one group and a tail of two)
+FAMILY_PARAMS = {"qwen3-1.7b": (1_723_982_848, 3_447_965_696),
+                 "olmoe-1b-7b": (6_922_770_432, 13_849_735_168),
+                 "recurrentgemma-9b": (9_396_301_824, 18_792_816_640),
+                 "seamless-m4t-medium": (616_626_176, 1_233_252_352)}
+FAMILY_REQUESTS = {"qwen3-1.7b": [(4, 64, 32), (4, 1100, 8)],
+                   "olmoe-1b-7b": [(4, 64, 32), (4, 1100, 8)],
+                   "recurrentgemma-9b": [(4, 64, 32), (4, 1100, 8),
+                                         (2, 2200, 8)],
+                   "seamless-m4t-medium": [(4, 64, 32), (4, 1100, 8)]}
+FAMILY_CHECK_DEPTH = {"qwen3-1.7b": dict(n_layers=2),
+                      "olmoe-1b-7b": dict(n_layers=2),
+                      "recurrentgemma-9b": dict(n_layers=5),
+                      "seamless-m4t-medium": dict(n_layers=2,
+                                                  n_enc_layers=2)}
 MAIN_N = 62_006                # paper-cnn params (configs/paper_cnn.py)
 LARGE_N = 1 << 28
 WSUM_PAD, GRAM_PAD = 4096, 2048   # the padded widths of the earlier rows
@@ -1513,21 +1538,33 @@ def hbfl_phase() -> dict:
 # Phase 6: serving RWKV-6 1.6B
 # --------------------------------------------------------------------------- #
 
+def request_inputs(cfg, batch: int, prompt_len: int, g, device="cuda"):
+    """Prompts [batch, prompt_len] and, for an encoder-decoder, the stub
+    frames [batch, prompt_len // 4, d_model] its encoder reads (None
+    otherwise), drawn from ``g``."""
+    from repro_torch.models.encdec import src_len
+    prompts = torch.randint(0, cfg.vocab_size, (batch, prompt_len),
+                            generator=g, device=device)
+    if cfg.family != "encdec":
+        return prompts, None
+    return prompts, torch.randn((batch, src_len(prompt_len), cfg.d_model),
+                                generator=g, device=device)
+
+
 def serve_request(model, params, batch: int, prompt_len: int, gen: int,
                   seed: int) -> dict:
     """One batched request through ``serve`` with the launch counts set to
     0 just before it; its timings, peak memory and kernel launches: RWKV-6
-    launches ``wkv6`` once a layer a prefill and nothing else, a dense
-    decoder none of the nine kernels."""
+    launches ``wkv6`` once a layer a prefill and nothing else, every other
+    family none of the nine kernels."""
     from repro_torch.kernels import _build
     from repro_torch.launch.serve import serve
     g = torch.Generator(device="cuda").manual_seed(seed)
-    prompts = torch.randint(0, model.cfg.vocab_size, (batch, prompt_len),
-                            generator=g, device="cuda")
+    prompts, frames = request_inputs(model.cfg, batch, prompt_len, g)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     _build.reset_launches()
-    res = serve(model, params, prompts, gen, "cuda")
+    res = serve(model, params, prompts, gen, "cuda", frames)
     launches = _build.launch_counts()
     arch = model.cfg.arch_id
     want = {k: 0 for k in launches}
@@ -1548,8 +1585,9 @@ def serve_request(model, params, batch: int, prompt_len: int, gen: int,
             "finite": res["finite"], "ids_head": res["ids"][0, :8].tolist(),
             "device": torch.cuda.get_device_name(0)}
     if model.cfg.family != "ssm":
-        line["note"] = ("no TPU kernel stands behind a dense decoder: none "
-                        "of the nine ported kernels runs on this path")
+        line["note"] = (f"no TPU kernel stands behind the "
+                        f"{model.cfg.family} family: none of the nine "
+                        "ported kernels runs on this path")
     print(json.dumps(line), flush=True)
     if not res["finite"]:
         fail(f"serve {arch} {batch}x{prompt_len}: non-finite logits")
@@ -1650,69 +1688,167 @@ def cross_check_serving_on_cpu(steps: int = 8) -> dict:
     return line
 
 
-def cross_check_decoder_on_cpu(steps: int = 8) -> dict:
-    """qwen3-1.7b's full width at depth 2, float32 with TF32 off, params
-    drawn on the card and copied to the CPU, 4 x 64 prompts: prefill logits
-    and KV cache, then the cache padded to 64 + ``steps`` slots as
-    ``serve`` pads it and ``steps`` decode steps fed the card's greedy
-    tokens (logits each step, the cache after the last), on the card and
-    on the CPU (both plain PyTorch). Tolerance: DECODER_REL of each
-    output's largest magnitude: float32 sums of up to 6,144 terms in
-    another order (cuBLAS against the CPU's BLAS) through two layers; the
-    CPU tests hold the port to 1e-5 of it against the reference."""
-    from repro_torch.config import replace
+def init_full_width(arch: str, want=None):
+    """Build ``arch`` at its published widths and draw its params on the
+    card from a seeded generator; print the count and bytes and fail
+    unless they are ``want``'s (params, bytes)."""
+    from repro_torch import tree
     from repro_torch.configs import get_config
     from repro_torch.models import build_model
-    from repro_torch.tree import tree_map
+    model = build_model(get_config(arch))
+    t0 = time.perf_counter()
+    params = model.init(torch.Generator(device="cuda").manual_seed(0),
+                        "cuda")
+    torch.cuda.synchronize()
+    n_params = sum(t.numel() for t in tree.leaves(params))
+    n_bytes = sum(t.numel() * t.element_size() for t in tree.leaves(params))
+    print(json.dumps({"phase": f"init-{arch}", "family": model.cfg.family,
+                      "params": n_params, "bytes": n_bytes,
+                      "init_s": time.perf_counter() - t0}), flush=True)
+    if want is not None and (n_params, n_bytes) != want:
+        fail(f"{arch}: {n_params} params, {n_bytes} bytes, want {want}")
+    return model, params
+
+
+def combine_determinism(model, params) -> dict:
+    """Two prefills of the same 4 x 64 prompts give the same logits bit for
+    bit: the MoE combine sums each token's experts in a fixed order, with
+    no atomics."""
+    g = torch.Generator(device="cuda").manual_seed(3)
+    prompts, _ = request_inputs(model.cfg, 4, 64, g)
+    with torch.inference_mode():
+        a, _ = model.prefill(params, {"tokens": prompts})
+        b, _ = model.prefill(params, {"tokens": prompts})
+    line = {"phase": f"serve-determinism-{model.cfg.arch_id}",
+            "batch": 4, "prompt_len": 64, "bit_identical": bool(
+                torch.equal(a, b)),
+            "max_abs_diff": float((a.float() - b.float()).abs().max())}
+    print(json.dumps(line), flush=True)
+    if not line["bit_identical"]:
+        fail(f"{model.cfg.arch_id}: two prefills of the same prompts "
+             f"differ by {line['max_abs_diff']}")
+    return line
+
+
+def cross_check_family_on_cpu(arch: str, steps: int = 8) -> dict:
+    """``arch``'s full width at the depth of FAMILY_CHECK_DEPTH, float32
+    with TF32 off, params drawn on the card and copied to the CPU, 4 x 64
+    prompts (and stub frames for an encoder-decoder): prefill logits and
+    the whole cache, then the cache padded to 64 + ``steps`` as ``serve``
+    pads it and ``steps`` decode steps fed the card's greedy tokens (logits
+    each step, the whole cache after the last), on the card and on the CPU
+    (both plain PyTorch). A MoE's routing (each call's top-k expert ids)
+    is compared first and exactly: where it differs, the smallest gap
+    between the k-th and the (k+1)-th probability is printed. Tolerance:
+    DECODER_REL of each output's largest magnitude: float32 sums of
+    thousands of terms in another order (cuBLAS against the CPU's BLAS)
+    through a few layers; the CPU tests hold the port to 1e-5 of it
+    against the reference."""
+    from repro_torch.config import replace
+    from repro_torch.configs import get_config
+    from repro_torch.launch.serve import pad_cache
+    from repro_torch.models import build_model
+    from repro_torch.models import moe
+    from repro_torch.tree import leaves, tree_map
     if torch.backends.cuda.matmul.allow_tf32:
-        fail("decoder cross-check: TF32 is on")
-    cfg = replace(get_config(DECODER_ARCH), n_layers=2,
+        fail(f"{arch} cross-check: TF32 is on")
+    cfg = replace(get_config(arch), **FAMILY_CHECK_DEPTH[arch],
                   param_dtype="float32", compute_dtype="float32")
     model = build_model(cfg)
     g = torch.Generator(device="cuda").manual_seed(1)
     params = model.init(g, "cuda")
-    prompts = torch.randint(0, cfg.vocab_size, (4, 64), generator=g,
-                            device="cuda")
+    prompts, frames = request_inputs(cfg, 4, 64, g)
 
     def run(p, dev, feed=None):
-        outs, fed = [], []
-        with torch.inference_mode():
-            logits, cache = model.prefill(p, {"tokens": prompts.to(dev)})
-            outs += [logits, cache["k"], cache["v"]]
-            full = model.init_cache(4, 64 + steps, dev)
-            for name in full:
-                full[name][:, :, :64] = cache[name]
-            cache = full
-            tok = torch.argmax(logits[:, -1], dim=-1)
-            for i in range(steps):
-                tok = tok if feed is None else feed[i].to(dev)
-                fed.append(tok)
-                logits, cache = model.decode_step(
-                    p, {"token": tok, "pos": 64 + i}, cache)
-                outs.append(logits)
-                tok = torch.argmax(logits, dim=-1)
-            outs += [cache["k"], cache["v"]]
-        return [o.float().cpu() for o in outs], fed
+        """Outputs, fed tokens and routing: (top-k ids, the least gap
+        between the k-th and the (k+1)-th probability) a MoE call."""
+        outs, fed, routes = [], [], []
+        route = moe._route
 
-    card, feed = run(params, "cuda")
-    cpu, _ = run(tree_map(lambda t: t.cpu(), params), "cpu", feed)
+        def rec(router_w, x2d, c):
+            out = route(router_w, x2d, c)
+            probs = torch.softmax(x2d.float() @ router_w.float(), dim=-1)
+            top = torch.sort(probs, dim=-1, descending=True).values
+            k = c.moe.top_k
+            routes.append((out[1].cpu(),
+                           float((top[:, k - 1] - top[:, k]).min())))
+            return out
+
+        batch = {"tokens": prompts.to(dev)}
+        if frames is not None:
+            batch["frames"] = frames.to(dev)
+        moe._route = rec
+        try:
+            with torch.inference_mode():
+                logits, cache = model.prefill(p, batch)
+                outs += [logits, *[t.clone() for t in leaves(cache)]]
+                cache = pad_cache(model.init_cache(4, 64 + steps, dev),
+                                  cache)
+                tok = torch.argmax(logits[:, -1], dim=-1)
+                for i in range(steps):
+                    tok = tok if feed is None else feed[i].to(dev)
+                    fed.append(tok)
+                    logits, cache = model.decode_step(
+                        p, {"token": tok, "pos": 64 + i}, cache)
+                    outs.append(logits)
+                    tok = torch.argmax(logits, dim=-1)
+                outs += leaves(cache)
+        finally:
+            moe._route = route
+        return [o.float().cpu() for o in outs], fed, routes
+
+    card, feed, card_routes = run(params, "cuda")
+    cpu, _, cpu_routes = run(tree_map(lambda t: t.cpu(), params), "cpu",
+                             feed)
+    if len(card_routes) != len(cpu_routes) or any(
+            not torch.equal(a[0], b[0])
+            for a, b in zip(card_routes, cpu_routes)):
+        fail(f"{arch} cross-check: the card routes otherwise than the CPU; "
+             "least gap between the k-th and (k+1)-th probability: "
+             f"{min((r[1] for r in cpu_routes), default=None)}")
     worst, errs = 0.0, []
     for i, (a, b) in enumerate(zip(card, cpu)):
         top = float(b.abs().max())
         err = float((a - b).abs().max())
-        errs.append(err / top)
-        worst = max(worst, err / top / DECODER_REL)
+        errs.append(err / top if top else err)
+        worst = max(worst, errs[-1] / DECODER_REL)
         if not (torch.isfinite(a).all() and err <= DECODER_REL * top):
-            fail(f"decoder cross-check output {i}: card vs CPU {err}, "
+            fail(f"{arch} cross-check output {i}: card vs CPU {err}, "
                  f"tol {DECODER_REL * top}")
-    line = {"phase": "serve-decoder-cross-check-cpu", "arch": DECODER_ARCH,
-            "n_layers": 2, "dtype": "float32", "tf32": False, "batch": 4,
-            "prompt_len": 64, "decode_steps": steps, "outputs": len(card),
-            "outputs_are": "prefill logits, k, v; logits a step; k, v last",
+    line = {"phase": f"serve-cross-check-cpu-{arch}",
+            "family": cfg.family, **FAMILY_CHECK_DEPTH[arch],
+            "dtype": "float32", "tf32": False, "batch": 4, "prompt_len": 64,
+            "decode_steps": steps, "outputs": len(card),
+            "outputs_are": "prefill logits and cache leaves (sorted keys); "
+                           "logits a step; cache leaves after the last",
+            "moe_route_calls": len(card_routes),
+            "routing_equal": True,
+            "least_topk_gap": min((r[1] for r in cpu_routes), default=None),
             "err_of_max": errs, "worst_err_of_tol": worst,
             "tol": f"{DECODER_REL} x max|cpu|, per output"}
     print(json.dumps(line), flush=True)
     return line
+
+
+def serve_family(arch: str) -> None:
+    """Phase 6 for one attention LM family: init at full width, its
+    requests, (MoE) the combine's determinism, a profiled request, the
+    params freed, the CLI, then the float32 check at reduced depth."""
+    from repro_torch.launch.serve import serve
+    model, params = init_full_width(arch, FAMILY_PARAMS[arch])
+    prompts, frames = request_inputs(model.cfg, 4, 64, torch.Generator(
+        device="cuda").manual_seed(4))
+    serve(model, params, prompts, 2, "cuda", frames)           # warm-up
+    for i, (b, s, gen) in enumerate(FAMILY_REQUESTS[arch]):
+        serve_request(model, params, b, s, gen, seed=30 + i)
+    if model.cfg.family == "moe":
+        combine_determinism(model, params)
+    print(json.dumps(profile_serving(model, params)), flush=True)
+    del params
+    torch.cuda.empty_cache()
+    serve_cli(arch)
+    cross_check_family_on_cpu(arch)
+    torch.cuda.empty_cache()
 
 
 def profile_serving(model, params) -> dict:
@@ -1722,13 +1858,12 @@ def profile_serving(model, params) -> dict:
     from torch.profiler import ProfilerActivity, profile
     from repro_torch.launch.serve import serve
     g = torch.Generator(device="cuda").manual_seed(2)
-    prompts = torch.randint(0, model.cfg.vocab_size, (4, 64), generator=g,
-                            device="cuda")
+    prompts, frames = request_inputs(model.cfg, 4, 64, g)
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        res = serve(model, params, prompts, 8, "cuda")
+        res = serve(model, params, prompts, 8, "cuda", frames)
         wall = time.perf_counter() - t0
     kern = [e for e in prof.key_averages()
             if e.device_type == torch.autograd.DeviceType.CUDA]
@@ -1864,20 +1999,10 @@ def main() -> int:
     hbfl_phase()
 
     # phase 6: serve RWKV-6 1.6B at full width, then the depth-2 CPU check
-    from repro_torch.configs import get_config
     from repro_torch.core.builder import resolve_device
-    from repro_torch.models import build_model
-    resolve_device("cuda")
-    model = build_model(get_config(SERVE_ARCH))
-    t0 = time.perf_counter()
-    params = model.init(torch.Generator(device="cuda").manual_seed(0), "cuda")
-    torch.cuda.synchronize()
-    n_params = sum(t.numel() for t in tree.leaves(params))
-    print(json.dumps({"phase": f"init-{SERVE_ARCH}", "params": n_params,
-                      "bytes": sum(t.numel() * t.element_size()
-                                   for t in tree.leaves(params)),
-                      "init_s": time.perf_counter() - t0}), flush=True)
     from repro_torch.launch.serve import serve
+    resolve_device("cuda")
+    model, params = init_full_width(SERVE_ARCH)
     serve(model, params, torch.zeros((4, 64), dtype=torch.long,
                                      device="cuda"), 2, "cuda")   # warm-up
     serving = [serve_request(model, params, 4, 64, 32, seed=10),
@@ -1893,29 +2018,10 @@ def main() -> int:
     torch.cuda.empty_cache()
     cross_check_serving_on_cpu()
 
-    # phase 6, continued: serve qwen3-1.7b (the dense decoder family) at
-    # full width, then its depth-2 float32 CPU check
-    model = build_model(get_config(DECODER_ARCH))
-    t0 = time.perf_counter()
-    params = model.init(torch.Generator(device="cuda").manual_seed(0), "cuda")
-    torch.cuda.synchronize()
-    n_params = sum(t.numel() for t in tree.leaves(params))
-    n_bytes = sum(t.numel() * t.element_size() for t in tree.leaves(params))
-    print(json.dumps({"phase": f"init-{DECODER_ARCH}", "params": n_params,
-                      "bytes": n_bytes, "init_s": time.perf_counter() - t0}),
-          flush=True)
-    if (n_params, n_bytes) != (DECODER_PARAMS, DECODER_BYTES):
-        fail(f"{DECODER_ARCH}: {n_params} params, {n_bytes} bytes, want "
-             f"{DECODER_PARAMS}, {DECODER_BYTES}")
-    serve(model, params, torch.zeros((4, 64), dtype=torch.long,
-                                     device="cuda"), 2, "cuda")   # warm-up
-    serve_request(model, params, 4, 64, 32, seed=20)
-    serve_request(model, params, 4, 1100, 8, seed=21)
-    print(json.dumps(profile_serving(model, params)), flush=True)
-    del params
-    torch.cuda.empty_cache()
-    serve_cli(DECODER_ARCH)
-    cross_check_decoder_on_cpu()
+    # phase 6, continued: the dense decoder, the MoE, the RG-LRU hybrid and
+    # the encoder-decoder at full width, one after the other
+    for arch in FAMILY_PARAMS:
+        serve_family(arch)
 
     # phase 7: the kernels line and the result line
     # row name -> (the kernels line's name, source, the TPU kernel, the

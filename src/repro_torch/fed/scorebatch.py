@@ -123,7 +123,7 @@ class BatchedScorer:
         if "x" not in td:
             raise NotImplementedError(
                 "token-stream scoring is not ported yet (ROADMAP.md, queue 1 "
-                "item 5: the LM families)")
+                "item 5: LM training)")
         x = np.asarray(td["x"])
         y = np.asarray(td["y"])
         bs = self.batch_size

@@ -1,5 +1,7 @@
-"""Uniform model API (twin of ``repro.models.api``): the ``cnn``, the
-``ssm`` (RWKV-6) and the ``dense`` / ``vlm`` decoder families.
+"""Uniform model API (twin of ``repro.models.api``) over every family in
+``configs/``: the ``cnn``; the ``dense``, ``vlm`` and ``moe`` decoders
+(``transformer``); the ``ssm`` (RWKV-6); the ``hybrid`` (RecurrentGemma,
+``rglru``); the ``encdec`` (SeamlessM4T, ``encdec``).
 
 ``build_model(cfg)`` returns a ``Model`` whose methods are plain functions
 of (params, batch), suitable for ``torch.func.grad_and_value`` / ``vmap``:
@@ -12,20 +14,21 @@ of (params, batch), suitable for ``torch.func.grad_and_value`` / ``vmap``:
 
 Batches:
   LM train:  {'tokens' [B,S] int, 'targets' [B,S] int}
+  encdec adds 'frames' [B,S/4,D] f32 (audio frontend stub).
   decode:    {'token' [B] int, 'pos' int}
   CNN:       {'image' [B,32,32,3] f32, 'label' [B] int}
 """
 from __future__ import annotations
 
 from repro_torch.config import ModelConfig
-from repro_torch.models import cnn, rwkv6, transformer
+from repro_torch.models import cnn, encdec, rglru, rwkv6, transformer
 
 
 class Model:
     def __init__(self, cfg: ModelConfig, mod, *, kind: str):
         self.cfg = cfg
         self._m = mod
-        self.kind = kind  # 'decoder' | 'ssm' | 'cnn'
+        self.kind = kind  # 'decoder' | 'encdec' | 'ssm' | 'hybrid' | 'cnn'
 
     def init(self, generator, device):
         return self._m.init_params(generator, self.cfg, device)
@@ -42,6 +45,8 @@ class Model:
         return self._m.init_cache(self.cfg, batch, seq_len, device)
 
     def prefill(self, params, batch):
+        if self.kind == "encdec":
+            return encdec.prefill(params, batch, self.cfg)
         return self._m.prefill(params, batch["tokens"], self.cfg)
 
     def decode_step(self, params, batch, cache):
@@ -52,15 +57,14 @@ class Model:
 _FAMILY_MOD = {
     "dense": (transformer, "decoder"),
     "vlm": (transformer, "decoder"),
+    "moe": (transformer, "decoder"),
     "ssm": (rwkv6, "ssm"),
+    "hybrid": (rglru, "hybrid"),
+    "encdec": (encdec, "encdec"),
     "cnn": (cnn, "cnn"),
 }
 
 
 def build_model(cfg: ModelConfig) -> Model:
-    if cfg.family not in _FAMILY_MOD:
-        raise NotImplementedError(
-            f"model family {cfg.family!r} is not ported yet (ROADMAP.md, "
-            "queue 1 item 5: moe.py, rglru.py, encdec.py)")
     mod, kind = _FAMILY_MOD[cfg.family]
     return Model(cfg, mod, kind=kind)

@@ -37,6 +37,12 @@ def dense_init(generator: torch.Generator, shape, in_axis_size, dtype,
     return (w * scale).to(device=device, dtype=dtype)
 
 
+def layer_at(tree, i: int):
+    """Slice ``i`` of every leaf of a tree of ``[n, ...]`` stacked layers."""
+    return {k: (layer_at(v, i) if isinstance(v, dict) else v[i])
+            for k, v in tree.items()}
+
+
 # --------------------------------------------------------------------------- #
 # Norms
 # --------------------------------------------------------------------------- #

@@ -1,4 +1,4 @@
-"""The edge tier and the dense decoder on the card, against the same runs on
+"""The edge tier and the LM families on the card, against the same runs on
 the CPU. Every test here needs a CUDA device (marker ``gpu``) and skips
 without one; the file imports no JAX, so it runs where the card is:
 
@@ -93,6 +93,55 @@ def test_gpu_dense_decoder_matches_the_cpu(arch, over):
                     p, {"token": tok, "pos": 40 + i}, cache)
                 outs.append(logits)
                 tok = logits.argmax(-1)
+        return [o.float().cpu() for o in outs], fed
+
+    _build.reset_launches()
+    card, feed = run(params, "cuda")
+    assert not any(_build.launch_counts().values())
+    cpu, _ = run(tree_map(lambda t: t.cpu(), params), "cpu", feed)
+    for a, b in zip(card, cpu):
+        assert (a - b).abs().max() <= GPU_REL * b.abs().max()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("arch,over", [("olmoe-1b-7b", {}),
+                                       ("mixtral-8x7b", {}),
+                                       ("recurrentgemma-9b", {"n_layers": 5}),
+                                       ("seamless-m4t-medium", {})])
+def test_gpu_lm_families_match_the_cpu(arch, over):
+    """The moe, hybrid and encdec families at smoke width in float32: the
+    prefill logits and cache, the cache padded as ``serve`` pads it, then
+    6 decode steps fed the card's greedy tokens, on the card and on the
+    CPU; no ported kernel launches on these paths."""
+    from repro_torch.launch.serve import pad_cache
+    from repro_torch.models.encdec import src_len
+    _cuda()
+    cfg = replace(get_smoke_config(arch), **F32, **over)
+    model = build_model(cfg)
+    params = model.init(torch.Generator().manual_seed(0), "cuda")
+    g = torch.Generator().manual_seed(1)
+    batch = {"tokens": torch.randint(0, cfg.vocab_size, (2, 40),
+                                     generator=g)}
+    if cfg.family == "encdec":
+        batch["frames"] = torch.randn((2, src_len(40), cfg.d_model),
+                                      generator=g)
+
+    def run(p, dev, feed=None):
+        outs, fed = [], []
+        with torch.inference_mode():
+            logits, cache = model.prefill(p, {k: v.to(dev)
+                                              for k, v in batch.items()})
+            outs += [logits, *[t.clone() for t in tree.leaves(cache)]]
+            cache = pad_cache(model.init_cache(2, 46, dev), cache)
+            tok = logits[:, -1].argmax(-1)
+            for i in range(6):
+                tok = tok if feed is None else feed[i].to(dev)
+                fed.append(tok)
+                logits, cache = model.decode_step(
+                    p, {"token": tok, "pos": 40 + i}, cache)
+                outs.append(logits)
+                tok = logits.argmax(-1)
+            outs += tree.leaves(cache)
         return [o.float().cpu() for o in outs], fed
 
     _build.reset_launches()

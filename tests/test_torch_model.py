@@ -112,9 +112,15 @@ def test_server_optimizers_match(name):
 
 
 def test_other_families_wait_for_their_slice():
-    """The families not ported yet (ROADMAP.md queue 1 item 5: moe, hybrid,
-    encdec) raise; the dense and vlm decoders build since their slice."""
-    for arch in ("mixtral-8x7b", "recurrentgemma-9b", "seamless-m4t-medium"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            tbuild(tget(arch))
-    assert tbuild(tget("qwen3-1.7b")).kind == "decoder"
+    """No family waits any more: every configuration in ``configs/``
+    builds, with the reference's kind for its family."""
+    from repro.configs import list_archs
+    from repro_torch.configs import list_archs as tlist
+    assert tlist(include_paper=True) == list_archs(include_paper=True)
+    want = {"dense": "decoder", "vlm": "decoder", "moe": "decoder",
+            "ssm": "ssm", "hybrid": "hybrid", "encdec": "encdec",
+            "cnn": "cnn"}
+    for arch in tlist(include_paper=True):
+        cfg = tget(arch)
+        assert tbuild(cfg).kind == want[cfg.family] == \
+            jbuild(get_config(arch)).kind, arch

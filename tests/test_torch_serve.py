@@ -112,9 +112,13 @@ def test_main_defaults_to_the_gpu():
     assert tserve.main(args).shape == (1, 2)
 
 
-def test_other_families_wait_for_their_slice():
-    """The families not ported yet (ROADMAP.md queue 1 item 5) raise; the
-    dense decoders serve since their slice (``test_torch_transformer.py``)."""
+def test_other_families_wait_for_their_slice(capsys):
+    """No family waits any more: the CLI serves the moe, hybrid and encdec
+    smoke presets on the CPU (``encdec`` fed the frames that ``main``
+    draws); ``test_torch_moe.py``, ``test_torch_rglru.py`` and
+    ``test_torch_encdec.py`` hold them to the reference."""
     for arch in ("mixtral-8x7b", "recurrentgemma-9b", "seamless-m4t-medium"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            tserve.main(["--arch", arch, "--device", "cpu"])
+        ids = tserve.main(["--arch", arch, "--device", "cpu", "--batch", "2",
+                           "--prompt-len", "16", "--gen", "4"])
+        assert ids.shape == (2, 4)
+        assert f"arch={arch}" in capsys.readouterr().out

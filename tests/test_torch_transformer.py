@@ -6,15 +6,11 @@ embedding), ``minicpm-2b`` (odd vocab 250 padded to 2048),
 ``qwen1.5-110b`` (QKV bias, untied) and ``chameleon-34b`` (``vlm``,
 untied), with the reference's init carried across as numpy arrays.
 
-Tolerances, per compared output:
-
-- float32: F32_REL = 1e-5 of the output's largest magnitude (float32 sums
-  in another order through two layers; measured errors are below 1e-6 of
-  it).
-- bf16: twice the reference's own bf16 rounding error, i.e. of how far its
-  bf16 output lies from its float32 evaluation of the same weights, and at
-  least one bf16 ulp (2^-7) of the largest magnitude (the bound of
-  ``tests/test_torch_rwkv6.py``: the frameworks round at different places).
+Tolerances are those of ``test_torch_lm_parity`` (the harness the LM-family
+tests share): F32_REL = 1e-5 of each output's largest magnitude in
+float32 (measured errors are below 1e-6 of it); in bf16 twice the
+reference's own bf16 error and at least one bf16 ulp (the bound of
+``tests/test_torch_rwkv6.py``: the frameworks round at different places).
 """
 import jax
 import jax.numpy as jnp
@@ -34,94 +30,13 @@ from repro_torch.launch import serve as tserve
 from repro_torch.models import build_model as tbuild
 from repro_torch.models import layers as TL
 from repro_torch.models import transformer as ttrans
-from repro_torch.tree import leaves_with_paths
+from test_torch_lm_parity import (F32, F32_REL, Case, init_layout, port_trace,
+                             ref_trace)
 
-F32_REL = 1e-5
-BF16_ULP = 2.0 ** -7
-BF16_FACTOR = 2.0
-F32 = dict(param_dtype="float32", compute_dtype="float32")
 ARCHS = ["qwen3-1.7b", "gemma-2b", "minicpm-2b", "qwen1.5-110b",
          "chameleon-34b"]
 B, S, STEPS = 2, 12, 6
 WINDOW = 32        # mixtral-8x7b's smoke attn_window, on a dense config
-
-
-class Case:
-    """One config in both packages with the reference's init in both."""
-
-    def __init__(self, arch, dtype="float32", **over):
-        self.jcfg, self.tcfg = jsmoke(arch), tsmoke(arch)
-        if dtype == "float32":
-            over = {**F32, **over}
-        self.jcfg, self.tcfg = jreplace(self.jcfg, **over), \
-            treplace(self.tcfg, **over)
-        self.dtype = dtype
-        self.jm, self.tm = jbuild(self.jcfg), tbuild(self.tcfg)
-        self.ref = self.jm.init(jax.random.PRNGKey(0))
-        self.tp = params_from_numpy(jax.tree.map(np.asarray, self.ref), "cpu")
-        if dtype == "bfloat16":
-            self.jm32 = jbuild(jreplace(self.jcfg, **F32))
-            self.ref32 = jax.tree.map(lambda a: a.astype(jnp.float32),
-                                      self.ref)
-
-    def tokens(self, seed, shape=(B, S)):
-        return np.random.default_rng(seed).integers(
-            0, self.jcfg.vocab_size, shape)
-
-    def check(self, got, want, what, want32=None):
-        got = [g.to(torch.float32).numpy() for g in got]
-        want = [np.asarray(jnp.asarray(w, jnp.float32)) for w in want]
-        assert len(got) == len(want), what
-        for i, (g, w) in enumerate(zip(got, want)):
-            assert g.shape == w.shape, (what, i, g.shape, w.shape)
-            top = np.abs(w).max()
-            if want32 is None:
-                tol = F32_REL * top
-            else:
-                w32 = np.asarray(want32[i], np.float32)
-                tol = max(BF16_FACTOR * np.abs(w - w32).max(), BF16_ULP * top)
-            err = np.abs(g - w).max()
-            assert err <= tol, f"{what}[{i}]: max err {err}, tol {tol}"
-
-
-def _ref_run(model, params, toks, ids):
-    """Reference prefill, then one decode step a column of ``ids``
-    (teacher forcing): [prefill logits, k, v, then logits, k, v a step]."""
-    logits, cache = model.prefill(params, {"tokens": jnp.asarray(toks)})
-    out = [logits, cache["k"], cache["v"]]
-    W = cache["k"].shape[2]
-    full = model.init_cache(toks.shape[0], toks.shape[1] + ids.shape[1])
-    cache = jax.tree.map(
-        lambda f, g: jax.lax.dynamic_update_slice(f, g.astype(f.dtype),
-                                                  (0,) * f.ndim)
-        if f.shape != g.shape else g, full, cache)
-    for i in range(ids.shape[1]):
-        logits, cache = model.decode_step(
-            params, {"token": jnp.asarray(ids[:, i], jnp.int32),
-                     "pos": jnp.int32(toks.shape[1] + i)}, cache)
-        out += [logits, cache["k"], cache["v"]]
-    return out, W
-
-
-def _port_run(model, params, toks, ids):
-    with torch.inference_mode():
-        logits, cache = model.prefill(params,
-                                      {"tokens": torch.from_numpy(toks)})
-        out = [logits, cache["k"].clone(), cache["v"].clone()]
-        full = model.init_cache(toks.shape[0], toks.shape[1] + ids.shape[1],
-                                "cpu")
-        for name in cache:
-            if full[name].shape != cache[name].shape:
-                full[name][:, :, :cache[name].shape[2]] = cache[name]
-            else:
-                full[name] = cache[name]
-        cache = full
-        for i in range(ids.shape[1]):
-            logits, cache = model.decode_step(
-                params, {"token": torch.from_numpy(ids[:, i]),
-                         "pos": toks.shape[1] + i}, cache)
-            out += [logits, cache["k"].clone(), cache["v"].clone()]
-    return out
 
 
 @pytest.fixture(scope="module", params=ARCHS)
@@ -131,12 +46,8 @@ def case(request):
 
 def test_init_layout_matches_the_reference(case):
     """The same leaves, shapes and dtypes, the layers stacked [L, ...]."""
-    tp = case.tm.init(torch.Generator().manual_seed(0), "cpu")
-    got = [(p, tuple(l.shape), str(l.dtype).split(".")[-1])
-           for p, l in leaves_with_paths(tp)]
-    want = [(p, tuple(l.shape), str(l.dtype)) for p, l in
-            leaves_with_paths(jax.tree.map(np.asarray, case.ref))]
-    assert got == want
+    tp, same = init_layout(case.tcfg.arch_id, "float32")
+    assert same
     assert tp["layers"]["attn"]["wq"].shape[0] == case.tcfg.n_layers
 
 
@@ -153,8 +64,9 @@ def test_decode_steps_match_the_reference(case):
     """Prefill, pad the cache to S + STEPS as ``serve`` does, then STEPS
     teacher-forced decode steps: logits and the whole cache each step."""
     toks, ids = case.tokens(1), case.tokens(2, (B, STEPS))
-    want, _ = _ref_run(case.jm, case.ref, toks, ids)
-    case.check(_port_run(case.tm, case.tp, toks, ids), want, "decode")
+    want = ref_trace(case.jm, case.ref, {"tokens": toks}, ids)
+    case.check(port_trace(case.tm, case.tp, {"tokens": toks}, ids), want,
+               "decode")
 
 
 def test_loss_matches_the_reference(case):
@@ -175,10 +87,10 @@ def test_loss_matches_the_reference(case):
 def test_bf16_prefill_and_decode_track_the_reference(arch):
     """At the presets' own bf16: within twice the reference's bf16 error."""
     c = Case(arch, "bfloat16")
-    toks, ids = c.tokens(5), c.tokens(6, (B, STEPS))
-    want, _ = _ref_run(c.jm, c.ref, toks, ids)
-    want32, _ = _ref_run(c.jm32, c.ref32, toks, ids)
-    c.check(_port_run(c.tm, c.tp, toks, ids), want, "bf16", want32)
+    toks, ids = {"tokens": c.tokens(5)}, c.tokens(6, (B, STEPS))
+    want = ref_trace(c.jm, c.ref, toks, ids)
+    want32 = ref_trace(c.jm32, c.ref32, toks, ids)
+    c.check(port_trace(c.tm, c.tp, toks, ids), want, "bf16", want32)
 
 
 # --------------------------------------------------------------------------- #
@@ -214,10 +126,10 @@ def test_sliding_window_and_rolling_cache_match(prompt):
     prefill rolls its last 32 keys) and one twice its size; then decode
     steps past the window, writing slot ``pos % 32``."""
     c = Case("qwen3-1.7b", attn_window=WINDOW)
-    toks, ids = c.tokens(7, (B, prompt)), c.tokens(8, (B, 16))
-    want, W = _ref_run(c.jm, c.ref, toks, ids)
-    assert W == min(WINDOW, prompt)
-    c.check(_port_run(c.tm, c.tp, toks, ids), want, "window")
+    toks, ids = {"tokens": c.tokens(7, (B, prompt))}, c.tokens(8, (B, 16))
+    want = ref_trace(c.jm, c.ref, toks, ids)
+    assert want[1].shape[2] == min(WINDOW, prompt)  # k: [L, B, W, KV, hd]
+    c.check(port_trace(c.tm, c.tp, toks, ids), want, "window")
 
 
 def test_decode_attention_matches_with_part_of_the_cache_valid():
@@ -300,7 +212,9 @@ def test_main_serves_qwen3_with_its_defaults_on_the_cpu(capsys):
 
 @pytest.mark.parametrize("arch", ["mixtral-8x7b", "olmoe-1b-7b"])
 def test_moe_family_waits_for_its_slice(arch):
-    with pytest.raises(NotImplementedError, match="queue 1 item 5"):
-        tbuild(tsmoke(arch))
-    with pytest.raises(NotImplementedError, match="queue 1 item 5"):
-        ttrans.init_params(torch.Generator(), tsmoke(arch), "cpu")
+    """It waits no more: the moe family builds as a decoder whose layers
+    hold ``"moe"`` in place of ``"mlp"`` (``tests/test_torch_moe.py`` holds
+    it to the reference)."""
+    assert tbuild(tsmoke(arch)).kind == "decoder"
+    p = ttrans.init_params(torch.Generator(), tsmoke(arch), "cpu")
+    assert "moe" in p["layers"] and "mlp" not in p["layers"]
