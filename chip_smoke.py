@@ -78,9 +78,25 @@ Phases, in order; any failure exits non-zero and prints no result:
      finite, none of the nine kernels launched, two MoE prefills
      bit-identical, the CLI once, and a float32 CPU check at reduced depth
      (FAMILY_CHECK_DEPTH; the MoE's routing compared exactly first);
-  7. print the ``kernels`` JSON line (all nine TPU kernels' counterparts,
-     with their launches on the main path and on the Async WAN and
-     MultiKRUM WAN paths), then the result line.
+  7. federated LM training, ``lm-train-qwen3-1.7b``: 2 Sync rounds of 3
+     silos x 2 clients of ``qwen3-1.7b`` at full width (a bf16 init from
+     a seeded generator on the card, float32 after the first SGD step as
+     in the reference; every silo at time_scale 0; int8 wire, loss
+     scoring, top-2; seq
+     128, batch 8, 8 steps an epoch, streams of 60,000 tokens at a data
+     vocabulary of 4,096), with the launch counts set to 0 just before:
+     round walls, round 2 profiled (idle share, top device operations),
+     eval losses finite and falling, ledger, peak memory within
+     LM_MEM_MARGIN of its reckoning, with the allocator's recorded trace
+     replayed to the peak (``memory_at_peak``: the live bytes by part and
+     by site); the same run at the smoke preset in float32 on the card
+     and on the CPU (picks, height, losses within LM_LOSS_TOL, each silo's
+     parameters within LM_PARAM_RTOL); the CLI
+     once. Before it all, in phase 3, the five kernels of this path at
+     the width of ``qwen3-1.7b`` (N = 1,723,982,848: ``check_model_width``);
+  8. print the ``kernels`` JSON line (all nine TPU kernels' counterparts,
+     with their launches on the main path and on the Async WAN, MultiKRUM
+     WAN, edge and LM-training paths), then the result line.
 
 The card's peak rates are the published H100 SXM figures; a card capped
 below 700 W runs slower, which is why its power limit is printed beside the
@@ -88,6 +104,7 @@ numbers.
 """
 from __future__ import annotations
 
+import gc
 import json
 import os
 import subprocess
@@ -136,6 +153,25 @@ ACC_TOL = 0.05                 # global accuracy, card vs CPU (see phase 4)
 WARM_S = 0.05                  # warm-up before each CUDA-event block
 # prefill of the two serving requests with the token-serial wkv6 kernel
 PREFILL_EARLIER_MS = {"4x64": 56.0, "4x1000": 83.4}
+# federated LM training (phase 7): qwen3-1.7b at full width, its token
+# streams drawn at a data vocabulary of 4,096 (make_lm_dataset builds dense
+# vocab x vocab float64 matrices: 184.7 GB each at 151,936); the
+# reference builder's settings. At 2 steps an epoch one silo's eval loss
+# rose on an H100 80GB, twice, while the steps are a small part of a
+# round's time (host copies and hashing are the rest), so it keeps 8
+LM_ARCH = "qwen3-1.7b"
+LM_DATA_VOCAB = 4096
+LM_STREAM = 60_000
+LM_EXP = dict(seq_len=128, batch_size=8, steps_per_epoch=8, lr=0.05)
+LM_ROUNDS = 2
+LM_LOSS_TOL = 1e-5             # eval loss, card vs CPU (float32 smoke)
+LM_PARAM_RTOL = 1e-5           # |card - cpu| / |cpu| of each silo's params
+LM_MEM_EVENTS = 4_000_000      # allocator events kept for the peak's replay
+# a qwen3-1.7b training step's saved activations and bf16 weight casts at
+# seq 128, batch 8: 11.84 GB live at the peak's replay (the attention's
+# scores padded to a 1,024-key chunk the most), on an H100 80GB
+LM_STEP_GB = 12.0
+LM_MEM_MARGIN = 0.05           # the peak may pass its reckoning by 5 %
 
 
 def fail(msg: str) -> None:
@@ -601,6 +637,188 @@ def check_kernels(shape: str, gen, iters: int):
             path=path, M=M, N=N, layout=layout, **extra)
         del got, again
         torch.cuda.empty_cache()
+    return rows
+
+
+def chunks(n: int, size: int = 1 << 27):
+    """[start, stop) windows covering n elements, for comparisons at model
+    width whose temporaries would not fit at once."""
+    return [(a, min(a + size, n)) for a in range(0, n, size)]
+
+
+def model_width_row(name: str, max_err: float, ts: dict, nbytes: float,
+                    flops: float = 0.0, check: str = "", **dims) -> dict:
+    """Print one row of ``check_model_width``: times (CUDA events), the
+    bound and the share of it the kernel reaches."""
+    b_ms, b_by = bound(nbytes, flops)
+    line = {"phase": "kernels-at-model-width", "name": name, **dims,
+            "max_abs_err": max_err, "check": check, "ms": ts["kernel"],
+            "plain_ms": ts["plain"], "library_ms": ts.get("library"),
+            **({"ops_ms": ts["ops"]} if "ops" in ts else {}),
+            "bound_ms": b_ms, "bound_by": b_by,
+            "share_of_bound": b_ms / ts["kernel"],
+            "device": torch.cuda.get_device_name(0)}
+    print(json.dumps(line), flush=True)
+    return line
+
+
+def wsum_q8_windows(q, s, w, n: int):
+    """``ref.wsum_q8`` of [M, Np] payloads, 2^27 columns at a time: at
+    M = 3 and the width of ``qwen3-1.7b`` its einsum over the whole payload
+    (one cuBLAS SGEMM) fails with CUBLAS_STATUS_EXECUTION_FAILED."""
+    from repro_torch.kernels import ref
+    return torch.cat([ref.wsum_q8(q[:, a:-(-b // 1024) * 1024],
+                                  s[:, a // 1024:-(-b // 1024)], w)[:b - a]
+                      for a, b in chunks(n)])
+
+
+def check_model_width(gen, iters: int = 3) -> list:
+    """The five kernels of the LM-training path at the operand it hands
+    them at full width: N = 1,723,982,848, the flat f32 vector of
+    ``qwen3-1.7b`` (params drawn on the card from seeds 0, 1 and 2, as
+    three silos' models), padded to Np = 1,723,990,016 for the int8 wire.
+    ``weighted_sum`` (a silo's FedAvg of two clients) on the whole model and
+    on its largest leaf, the 153,600 x 2,048 embedding (the vocabulary
+    padded to a multiple of 2,048): to its tolerance and
+    bit for bit against the kernel's FMA order; ``quantize`` (each model's
+    encode, through ``ops``: ``F.pad``, then the kernel) bit for bit;
+    ``dequantize_batch`` at K = 2 (the scoring ingest: a [2, N] output of
+    3.45e9 elements, past 2^31) bit for bit, row by row; ``wsum_q8`` of the
+    three payloads (the cross-silo merge) bit for bit against its FMA order,
+    in windows of 2^27. Every element is compared."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops, quant, ref
+    from repro_torch.models import build_model
+    model = build_model(get_config(LM_ARCH))
+    N = FAMILY_PARAMS[LM_ARCH][0]
+    Np = N + (-N) % ops.QUANT_BLOCK
+    rows = []
+
+    def init(seed):
+        return model.init(torch.Generator(device="cuda").manual_seed(seed),
+                          "cuda")
+
+    # weighted_sum: the FedAvg of two clients' models
+    p0, p1 = init(0), init(1)
+    emb = torch.stack([p["embed"]["embedding"] for p in (p0, p1)]).reshape(
+        2, -1).float()
+    x, _ = ops.flatten_batch([p0, p1])
+    del p0, p1
+    if x.shape != (2, N):
+        fail(f"model width: flat vectors {tuple(x.shape)}, want (2, {N})")
+    w = torch.rand((2,), generator=gen, device="cuda")
+    w = w / w.sum()
+    w_host = w.cpu()
+    for what, xs in (("embedding", emb), ("model", x)):
+        n = xs.shape[1]
+        got = ops.weighted_sum(xs, w_host)
+        err, scale = 0.0, 0.0
+        for a, b in chunks(n):
+            xc = xs[:, a:b]
+            err = max(err, float((got[a:b] - ref.weighted_sum(xc, w)).abs()
+                                 .max()))
+            scale = max(scale, float((w[0] * xc[0].abs() + w[1] * xc[1].abs())
+                                     .max()))
+            if not torch.equal(got[a:b], ref.weighted_sum_ordered(xc, w)):
+                fail(f"weighted_sum at model width ({what}): not the "
+                     f"ordered FMA chain in [{a}, {b})")
+        tol = 2 * 2.0 ** -23 * scale
+        if not err <= tol:
+            fail(f"weighted_sum at model width ({what}): max_abs_err {err} "
+                 f"> {tol}")
+        del got
+        ts = timed({"kernel": lambda: ops.weighted_sum(xs, w_host),
+                    "plain": lambda: ref.weighted_sum(xs, w),
+                    "library": lambda: torch.matmul(w, xs)}, iters, 3)
+        rows.append(model_width_row(
+            "weighted_sum", err, ts, 3 * n * 4, 4.0 * n,
+            check=f"abs err <= M*2^-23*max sum|w x| = {tol:.3e}; bit-exact "
+                  "with the ordered FMA chain", M=2, N=n, operand=what))
+        torch.cuda.empty_cache()
+    del emb
+
+    # quantize: each model's int8 encode, through ops (F.pad to Np first)
+    qs = []
+    for i in range(3):
+        xi = x[i] if i < 2 else ops.flatten_pytree(init(2))[0]
+        q, s, n = ops.quantize(xi)
+        qs.append((q, s))
+        if i == 0:
+            xp = F.pad(xi, (0, Np - N))
+            q0, s0 = ref.quantize_int8(xp)
+            if not (n == N and torch.equal(q, q0) and torch.equal(s, s0)):
+                fail("quantize at model width: codes or scales differ from "
+                     f"the plain version ({int((q != q0).sum())} codes)")
+            del q0, s0
+            torch.cuda.empty_cache()
+            ts = timed({"kernel": lambda: quant.quantize(xp),
+                        "plain": lambda: ref.quantize_int8(xp),
+                        "ops": lambda: ops.quantize(xi)}, iters, 3)
+            rows.append(model_width_row(
+                "quantize", 0.0, ts, Np * 4 + Np + Np // 1024 * 4,
+                check="bit-exact codes and scales (ops: F.pad, then the "
+                      "kernel; ms is the kernel on the padded operand)",
+                N=Np, n=N))
+            del xp
+        del xi
+    del x
+    torch.cuda.empty_cache()
+
+    # dequantize_batch: the scoring ingest of two payloads, [2, N] out
+    qk = torch.stack([qs[0][0], qs[1][0]])
+    sk = torch.stack([qs[0][1], qs[1][1]])
+    got = ops.dequantize_batch(qk, sk, N)
+    for k in range(2):
+        if not torch.equal(got[k], ref.dequantize_int8(qk[k], sk[k])[:N]):
+            fail(f"dequantize_batch at model width: row {k} differs from "
+                 "the plain version")
+    del got
+    torch.cuda.empty_cache()
+    ts = timed({"kernel": lambda: ops.dequantize_batch(qk, sk, N),
+                "plain": lambda: ref.dequantize_rows(qk, sk)[:, :N],
+                "library": lambda: torch.mul(qk.view(2, -1, 1024),
+                                             sk.unsqueeze(-1))}, iters, 3)
+    rows.append(model_width_row(
+        "dequantize_batch", 0.0, ts, 2 * N + 2 * (Np // 1024) * 4 + 2 * N * 4,
+        check="bit-exact, both rows whole (output element 2^31 is row 1, "
+              f"column {2 ** 31 - N})", K=2, N=Np, n=N))
+    del qk, sk
+    torch.cuda.empty_cache()
+
+    # wsum_q8: the cross-silo merge of three payloads
+    q3 = torch.stack([q for q, _ in qs])
+    s3 = torch.stack([s for _, s in qs])
+    del qs
+    w3 = torch.rand((3,), generator=gen, device="cuda")
+    got = ops.weighted_sum_q8(q3, s3, w3, N)
+    fw = w3[:, None] * s3             # the kernel's w_m s_m, rounded once
+    scale = 127.0 * float(fw.sum(0).max())
+    for a, b in chunks(N):            # a: a multiple of 1024
+        t0, t1 = a // 1024, -(-b // 1024)
+        want = ref.weighted_sum_ordered(
+            q3[:, a:t1 * 1024].float(),
+            fw[:, t0:t1].repeat_interleave(1024, 1))
+        if not torch.equal(got[a:b], want[:b - a]):
+            fail(f"wsum_q8 at model width: not the kernel's FMA chain in "
+                 f"[{a}, {b})")
+    del fw
+    err = float((got - wsum_q8_windows(q3, s3, w3, N)).abs().max())
+    tol = 3 * 2.0 ** -22 * scale
+    if not err <= tol:
+        fail(f"wsum_q8 at model width: max_abs_err {err} > {tol}")
+    del got
+    torch.cuda.empty_cache()
+    ts = timed({"kernel": lambda: ops.weighted_sum_q8(q3, s3, w3, N),
+                "plain": lambda: wsum_q8_windows(q3, s3, w3, N)}, iters, 3)
+    rows.append(model_width_row(
+        "wsum_q8", err, ts, 3 * Np + 3 * (Np // 1024) * 4 + N * 4, 6.0 * N,
+        check=f"bit-exact with the kernel's FMA chain; abs err vs the plain "
+              f"version <= M*2^-22*127*max sum w s = {tol:.3e}; plain in "
+              "2^27-column windows (its einsum over the whole [3, N] fails "
+              "in cuBLAS: CUBLAS_STATUS_EXECUTION_FAILED)",
+        M=3, N=Np, n=N))
+    del q3, s3
+    torch.cuda.empty_cache()
     return rows
 
 
@@ -1886,7 +2104,294 @@ def profile_serving(model, params) -> dict:
                             for e in top]}
 
 
+# --------------------------------------------------------------------------- #
+# Phase 7: federated LM training
+# --------------------------------------------------------------------------- #
+
+def lm_experiment(cfg, data_vocab: int, device: str, init_generator=None):
+    """Sync UnifyFL of 3 silos x 2 clients over 3 Markov dialect streams of
+    LM_STREAM tokens at ``data_vocab``, int8 wire, loss scoring, top-2:
+    ``build_lm_experiment``'s silos through its helper, which takes the
+    streams (here drawn below the model's vocabulary) and the generator of
+    the common init."""
+    from repro_torch.config import FedConfig
+    from repro_torch.core.builder import _lm_experiment
+    from repro_torch.data.synthetic import make_lm_dataset
+    fed = FedConfig(n_silos=3, clients_per_silo=2, rounds=LM_ROUNDS,
+                    local_epochs=1, mode="sync", scorer="loss",
+                    agg_policy="top_k", policy_k=2, compression="int8")
+    streams = make_lm_dataset(vocab=data_vocab, length=LM_STREAM,
+                              n_dialects=fed.n_silos, seed=0)
+    orch = _lm_experiment(cfg, fed, streams, **LM_EXP, silo_specs=None,
+                          seed=0, device=device,
+                          init_generator=init_generator)
+    # host compute off the simulated clock (as in phase 5): at full width
+    # a silo's scoring (two fetches and decodes of 1.72 GB of codes) takes
+    # longer on the host than the 5 s scorer deadline, so at time_scale 1
+    # every score came late and nothing was picked (on an H100 80GB)
+    for s in orch.silos:
+        s.time_scale = 0.0
+    return orch
+
+
+def eval_losses(orch) -> list:
+    return [s.cluster.evaluate()["loss"] for s in orch.silos]
+
+
+def lm_reckoning(P: int) -> dict:
+    """Device bytes the 2-round run should peak at, from the parameter
+    count P, at its three highest moments, all in round 2 (float32 silo
+    models since round 1: a client's SGD step turns the bf16 init float32,
+    as the reference's does). Each holds the 3 silos' models (12P) and the
+    int8 payloads decoded in round 1 and kept in the stores' caches (6P).
+    A silo's merge adds its flat vector, the delta, eta times the delta
+    and the merged vector (16P): 34P. Its FedAvg adds the two clients'
+    models (8P), their [2, N] stack (8P) and its average (4P): 38P. The
+    backward of its second client's step adds the first client's model,
+    the second's and its gradients (12P) and the step's saved activations
+    and bf16 weight casts at seq 128, batch 8 (LM_STEP_GB): 30P +
+    LM_STEP_GB."""
+    state = {"silo_models_f32": 12 * P, "decoded_int8_caches": 6 * P}
+    base = sum(state.values())
+    moments = {"merge_gb": base + 16 * P, "fedavg_gb": base + 20 * P,
+               "train_step_gb": base + 12 * P + LM_STEP_GB * 1e9}
+    return {**{k: v / 1e9 for k, v in {**state, **moments}.items()},
+            "total_gb": max(moments.values()) / 1e9}
+
+
+# the reckoning's parts, told apart by the frames of the port that
+# allocated a block, the first part that matches (the backward's own
+# allocations have none; flatten_batch runs inside fedavg_params)
+MEMORY_PARTS = (
+    ("flat_vectors", ("flatten_batch",)),
+    ("silo_models", ("fedavg_params", "fedopt.py")),
+    ("decoded_int8_caches", ("decode_store",)),
+    ("client_models", ("_descend",)),
+    ("step_activations_and_casts", ("transformer.py", "layers.py")),
+    ("backward", ("outside the port",)),
+)
+
+
+def memory_at_peak(snap: dict, base: int) -> dict:
+    """Replay the caching allocator's recorded trace of the card (``base``
+    bytes were allocated when recording began): the highest allocated
+    total, and the blocks live at that moment summed by the innermost
+    three frames of the port in their Python stacks ("before" for blocks
+    allocated before recording)."""
+    trace = [e for e in snap["device_traces"][0]
+             if e["action"] in ("alloc", "free_completed")]
+
+    def site(e) -> str:
+        fr = [f"{os.path.basename(f['filename'])}:{f['line']}"
+              f"({f['name']})" for f in e.get("frames", [])
+              if "repro_torch" in f["filename"]]
+        return " < ".join(fr[:3]) or "outside the port"
+
+    total, peak, at = base, base, -1
+    for i, e in enumerate(trace):
+        total += e["size"] if e["action"] == "alloc" else -e["size"]
+        if total > peak:
+            peak, at = total, i
+    live = {}
+    for e in trace[:at + 1]:
+        if e["action"] == "alloc":
+            live[e["addr"]] = e
+        else:
+            live.pop(e["addr"], None)
+    by_site: dict = {}
+    for e in live.values():
+        by_site[site(e)] = by_site.get(site(e), 0) + e["size"]
+    by_site["before"] = peak - sum(by_site.values())
+    parts: dict = {}
+    for key, n in by_site.items():
+        part = next((name for name, marks in MEMORY_PARTS
+                     if any(m in key for m in marks)), "other")
+        parts[part] = parts.get(part, 0) + n
+    top = sorted(by_site.items(), key=lambda kv: -kv[1])[:12]
+    return {"events": len(trace),
+            "complete": len(snap["device_traces"][0]) < LM_MEM_EVENTS,
+            "peak_gb": peak / 1e9,
+            "peak_at": site(trace[at]) if at >= 0 else "before",
+            "parts_gb": {k: v / 1e9 for k, v in parts.items()},
+            "live_gb": {k: v / 1e9 for k, v in top}}
+
+
+def lm_train_phase(tree) -> dict:
+    """``lm-train-qwen3-1.7b``: 2 Sync rounds at full width on the card
+    (a bf16 init from a seeded generator on the card; float32 params after
+    the first SGD step, as in the reference), with the launch counts set
+    to 0 just before; round 2 under ``torch.profiler`` (device idle share,
+    top device operations); eval losses before and after (finite, and
+    falling for every silo), every silo merging both peers in round 2,
+    ledger, peak memory beside ``lm_reckoning``."""
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import _build
+    # what earlier phases left in reference cycles would count toward the
+    # peak (two runs of the whole script read 78.68 and 83.82 GB without
+    # this, on an H100 80GB's 85.0)
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    allocated_before = torch.cuda.memory_allocated()
+    torch.cuda.memory._record_memory_history(max_entries=LM_MEM_EVENTS,
+                                             stacks="python")
+    t0 = time.perf_counter()
+    orch = lm_experiment(get_config(LM_ARCH), LM_DATA_VOCAB, "cuda",
+                         torch.Generator(device="cuda").manual_seed(0))
+    build_s = time.perf_counter() - t0
+    pre = eval_losses(orch)
+    # device activity only: with the CPU's op events too, reading a
+    # round's profile back took longer than the two rounds on an H100
+    # 80GB host
+    prof = profile(activities=[ProfilerActivity.CUDA])
+    marks = []
+    mark_round = orch._mark_round
+
+    def timed_mark(rnd, silo_id=None):
+        torch.cuda.synchronize()
+        marks.append(time.perf_counter())
+        (prof.start if len(marks) == 1 else prof.stop)()
+        mark_round(rnd, silo_id)
+
+    orch._mark_round = timed_mark
+    _build.reset_launches()
+    t0 = time.perf_counter()
+    orch.run(LM_ROUNDS)
+    launches = _build.launch_counts()
+    walls = [marks[0] - t0, marks[1] - marks[0]]
+    kern = [e for e in prof.key_averages()
+            if e.device_type == torch.autograd.DeviceType.CUDA]
+    busy_s = sum(e.self_device_time_total for e in kern) / 1e6
+    top = sorted(kern, key=lambda e: -e.self_device_time_total)[:8]
+    post = eval_losses(orch)
+    peak = torch.cuda.max_memory_allocated()
+    t0 = time.perf_counter()
+    at_peak = memory_at_peak(torch.cuda.memory._snapshot(), allocated_before)
+    torch.cuda.memory._record_memory_history(enabled=None)
+    at_peak["replay_s"] = time.perf_counter() - t0
+    P = sum(t.numel() for t in tree.leaves(orch.silos[0].cluster.params))
+    line = {"phase": f"lm-train-{LM_ARCH}", "rounds": LM_ROUNDS,
+            "silos": "3x2", "compression": "int8", "scorer": "loss",
+            "policy": "top_k, k=2", **LM_EXP, "local_epochs": 1,
+            "stream_len": LM_STREAM, "data_vocab": LM_DATA_VOCAB,
+            "params": P, "build_s": build_s, "round_wall_s": walls,
+            "profiled_round": 2, "device_busy_s": busy_s,
+            "device_idle_share": 1.0 - busy_s / walls[1],
+            "top_device_ops": [{"name": e.key[:80], "count": e.count,
+                                "ms": e.self_device_time_total / 1e3}
+                               for e in top],
+            "eval_loss_before": pre, "eval_loss_after": post,
+            "ledger_height": orch.ledger.height,
+            "verify": orch.ledger.verify(),
+            "picks": [s.pick_log for s in orch.silos],
+            "launches": launches,
+            "allocated_before_gb": allocated_before / 1e9,
+            "peak_memory_gb": peak / 1e9, "reckoned": lm_reckoning(P),
+            "at_peak": at_peak,
+            "card": subprocess.run(
+                ["nvidia-smi", "--query-gpu=name,power.limit",
+                 "--format=csv,noheader"], capture_output=True,
+                text=True).stdout.strip(),
+            "reduced": {"data_vocab": "151,936 -> 4,096"}}
+    print(json.dumps(line), flush=True)
+    if P != FAMILY_PARAMS[LM_ARCH][0]:
+        fail(f"{LM_ARCH}: {P} params, want {FAMILY_PARAMS[LM_ARCH][0]}")
+    if peak / 1e9 > line["reckoned"]["total_gb"] * (1 + LM_MEM_MARGIN) or \
+            not at_peak["complete"]:
+        fail(f"LM training run: peak {peak / 1e9:.2f} GB against "
+             f"{line['reckoned']['total_gb']:.2f} GB reckoned: {at_peak}")
+    if not line["verify"]:
+        fail("LM training run: ledger does not verify")
+    if not all(torch.isfinite(torch.tensor(pre + post))) or \
+            not all(b < a for a, b in zip(pre, post)):
+        fail(f"LM training run: eval losses {pre} -> {post}")
+    for s in orch.silos:
+        if any(t.device.type != "cuda" or t.dtype != torch.float32
+               for t in tree.leaves(s.cluster.params)):
+            fail(f"{s.silo_id}: params left the card or are not float32")
+        if s.pick_log[-1]["owners"] != sorted(
+                o.silo_id for o in orch.silos if o is not s):
+            fail(f"{s.silo_id}: round 2 picked {s.pick_log[-1]}")
+    missing = [k for k in ("weighted_sum", "quantize", "dequantize",
+                           "wsum_q8") if launches[k] == 0]
+    if missing:
+        fail(f"LM training run never launched {missing}")
+    del orch
+    torch.cuda.empty_cache()
+    return line
+
+
+def lm_cross_check_cpu() -> dict:
+    """The same 2-round run at the smoke preset in float32 (vocabulary 256,
+    its streams at 256) on the card and on the CPU, from the same init
+    drawn on the CPU: equal picks and ledger height, every silo's eval loss
+    within LM_LOSS_TOL (losses near 5.5; float32 sums in another order over
+    16 SGD steps a client and two int8 merges) and its parameters after
+    round 2 within LM_PARAM_RTOL of the CPU's (the norm of the difference
+    over the norm)."""
+    from repro_torch.kernels import ops
+    from repro_torch.config import replace
+    from repro_torch.configs import get_smoke_config
+    cfg = replace(get_smoke_config(LM_ARCH), param_dtype="float32",
+                  compute_dtype="float32")
+    runs = {}
+    for dev in ("cuda", "cpu"):
+        orch = lm_experiment(cfg, cfg.vocab_size, dev)
+        pre = eval_losses(orch)
+        orch.run(LM_ROUNDS)
+        runs[dev] = (orch, pre, eval_losses(orch))
+    (card, cpre, cpost), (cpu, ppre, ppost) = runs["cuda"], runs["cpu"]
+    param_rel = []
+    for a, b in zip(card.silos, cpu.silos):
+        va = ops.flatten_pytree(a.cluster.params)[0].cpu().double()
+        vb = ops.flatten_pytree(b.cluster.params)[0].double()
+        param_rel.append(float((va - vb).norm() / vb.norm()))
+    line = {"phase": f"lm-train-{LM_ARCH}-smoke-cross-check-cpu",
+            "picks_equal": [s.pick_log for s in card.silos]
+            == [s.pick_log for s in cpu.silos],
+            "ledger_height": [card.ledger.height, cpu.ledger.height],
+            "eval_loss_card": [cpre, cpost], "eval_loss_cpu": [ppre, ppost],
+            "max_loss_diff": max(abs(a - b) for a, b in
+                                 zip(cpre + cpost, ppre + ppost)),
+            "tol": LM_LOSS_TOL, "param_rel_diff": param_rel,
+            "param_rtol": LM_PARAM_RTOL}
+    print(json.dumps(line), flush=True)
+    if not (line["picks_equal"] and card.ledger.height == cpu.ledger.height
+            and card.ledger.verify() and line["max_loss_diff"] <= LM_LOSS_TOL
+            and max(param_rel) <= LM_PARAM_RTOL):
+        fail(f"LM training: the card and the CPU differ: {line}")
+    return line
+
+
+def lm_train_cli() -> dict:
+    """The user's entry point, ``python -m repro_torch.launch.train
+    --workload lm --preset smoke`` (qwen3-1.7b, 2 rounds, int8, loss
+    scoring, top-k) on the card, with the launch counts set to 0 first."""
+    from repro_torch.kernels import _build
+    from repro_torch.launch.train import main as train_main
+    _build.reset_launches()
+    ge = train_main(["--workload", "lm", "--arch", LM_ARCH, "--preset",
+                     "smoke", "--rounds", "2", "--scorer", "loss",
+                     "--policy", "top_k", "--compression", "int8"])
+    line = {"phase": "lm-train-cli", "global_eval": ge,
+            "launches": _build.launch_counts()}
+    print(json.dumps(line), flush=True)
+    if sorted(ge) != ["silo0", "silo1", "silo2"] or any(
+            line["launches"][k] == 0 for k in
+            ("weighted_sum", "quantize", "dequantize", "wsum_q8")):
+        fail(f"LM training CLI: {line}")
+    return line
+
+
 def main() -> int:
+    # set before the first allocation on the card: phase 7 holds three
+    # silos of qwen3-1.7b and their 13.8 GB FedAvg stacks, and without
+    # expandable segments the caching allocator's multi-GB blocks
+    # fragment (on an H100 80GB: out of memory with 25.6 GB reserved but
+    # free in pieces)
+    os.environ.setdefault("PYTORCH_CUDA_ALLOC_CONF",
+                          "expandable_segments:True")
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device visible", file=sys.stderr)
         return 1
@@ -1920,6 +2425,7 @@ def main() -> int:
     before = launch_rate()
     main_rows = check_kernels("main", gen, iters=200)
     finish_rows(check_kernels("large", gen, iters=5))
+    check_model_width(gen)
     wkv6_rows = [check_wkv6("main", gen, iters=200),
                  check_wkv6("long", gen, iters=50)]
     finish_rows([check_wkv6("large", gen, iters=20)])
@@ -2023,7 +2529,12 @@ def main() -> int:
     for arch in FAMILY_PARAMS:
         serve_family(arch)
 
-    # phase 7: the kernels line and the result line
+    # phase 7: federated LM training at full width, its CPU check, the CLI
+    lm = lm_train_phase(tree)
+    lm_cross_check_cpu()
+    lm_train_cli()
+
+    # phase 8: the kernels line and the result line
     # row name -> (the kernels line's name, source, the TPU kernel, the
     # wrapper whose launches count it)
     meta = {
@@ -2073,6 +2584,7 @@ def main() -> int:
                         "launches_multikrum_wan":
                             krum_wan["launches"][counter],
                         "launches_edge": edge["launches"][counter],
+                        "launches_lm_train": lm["launches"][counter],
                         "max_abs_err": r["max_abs_err"], "ms": r["kernel_ms"],
                         "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
                         "bound_by": r["bound_by"],

@@ -1,9 +1,9 @@
 """Experiment assembly: datasets -> partitions -> clusters -> orchestrator.
 
-Twin of ``repro.core.builder`` (the image workload). The entry point runs on
-the CUDA device unless the caller asks otherwise: ``device=None`` resolves to
-``"cuda"`` and raises when no card is visible — nothing falls back to the
-CPU. Tests pass ``device="cpu"``.
+Twin of ``repro.core.builder``: the image workload and federated LM
+training. The entry points run on the CUDA device unless the caller asks
+otherwise: ``device=None`` resolves to ``"cuda"`` and raises when no card is
+visible — nothing falls back to the CPU. Tests pass ``device="cpu"``.
 """
 from __future__ import annotations
 
@@ -18,11 +18,12 @@ from repro_torch.core.orchestrator import (AsyncOrchestrator,
                                            BaseOrchestrator, SiloPolicy,
                                            SyncOrchestrator)
 from repro_torch.data.partition import dirichlet_partition, iid_partition
-from repro_torch.data.synthetic import make_image_dataset
+from repro_torch.data.synthetic import make_image_dataset, make_lm_dataset
 from repro_torch.edge.fleet import EdgeFleet
 from repro_torch.fed.client import Client
 from repro_torch.fed.cluster import Cluster
 from repro_torch.models import build_model
+from repro_torch.tree import tree_map
 
 
 @dataclass
@@ -142,6 +143,68 @@ def build_image_experiment(model_cfg: ModelConfig, fed: FedConfig, *,
                       extra_score_delay=spec.extra_score_delay)
     # the shared global test set for reporting 'global accuracy'
     orch.global_test = {"x": xt, "y": yt}
+    return orch
+
+
+def build_lm_experiment(model_cfg: ModelConfig, fed: FedConfig, *,
+                        seq_len: int = 128, batch_size: int = 8,
+                        steps_per_epoch: int = 8, lr: float = 0.05,
+                        stream_len: int = 60_000,
+                        silo_specs: Optional[Sequence[SiloSpec]] = None,
+                        seed: int = 0, device=None):
+    """Federated LM training: per-silo Markov 'dialects' (NIID streams), on
+    ``device`` (default: the CUDA device)."""
+    wire.resolve_method(fed.compression)   # fail before building anything
+    dev = resolve_device(device)
+    streams = make_lm_dataset(vocab=model_cfg.vocab_size, length=stream_len,
+                              n_dialects=fed.n_silos, seed=seed)
+    return _lm_experiment(model_cfg, fed, streams, seq_len=seq_len,
+                          batch_size=batch_size,
+                          steps_per_epoch=steps_per_epoch, lr=lr,
+                          silo_specs=silo_specs, seed=seed, device=dev)
+
+
+def _lm_experiment(model_cfg: ModelConfig, fed: FedConfig, streams, *,
+                   seq_len: int, batch_size: int, steps_per_epoch: int,
+                   lr: float, silo_specs, seed: int, device,
+                   init_generator=None):
+    """The LM silos over given token ``streams``, one a silo: each
+    stream's first 90 % split evenly across the silo's clients, the rest
+    its test stream. Every silo starts from one common init, drawn once
+    from ``init_generator`` (default: a CPU generator seeded with
+    ``seed``, as ``Cluster`` draws) and copied to each silo."""
+    dev = resolve_device(device)
+    orch_cls = SyncOrchestrator if fed.mode == "sync" else AsyncOrchestrator
+    orch = orch_cls(fed)
+    specs = list(silo_specs or [SiloSpec() for _ in range(fed.n_silos)])
+    model = build_model(model_cfg)
+    init = model.init(init_generator or torch.Generator().manual_seed(seed),
+                      dev)
+    for i in range(fed.n_silos):
+        spec = specs[i]
+        stream = streams[i]
+        cut = int(len(stream) * 0.9)
+        shard = cut // fed.clients_per_silo
+        clients = []
+        for j in range(fed.clients_per_silo):
+            sub = stream[j * shard:(j + 1) * shard]
+            clients.append(Client(
+                f"silo{i}/client{j}", model,
+                {"tokens": sub, "seq_len": seq_len,
+                 "steps_per_epoch": steps_per_epoch},
+                device=dev, batch_size=batch_size, lr=lr,
+                seed=seed * 100 + i * 10 + j))
+        cluster = Cluster(f"silo{i}", model, clients,
+                          test_data={"tokens": stream[cut:],
+                                     "seq_len": seq_len}, device=dev,
+                          server_opt=spec.server_opt,
+                          local_epochs=fed.local_epochs,
+                          byzantine=spec.byzantine, seed=seed,
+                          init=init if i == 0 else tree_map(torch.clone,
+                                                            init))
+        orch.add_silo(cluster, policy=spec.policy,
+                      extra_train_delay=spec.extra_train_delay,
+                      extra_score_delay=spec.extra_score_delay)
     return orch
 
 

@@ -43,7 +43,7 @@ from repro_torch.core.ledger import Ledger
 from repro_torch.core.policies import select_models
 from repro_torch.core.scoring import multikrum_scores_for_decoded
 from repro_torch.core.simenv import SimEnv
-from repro_torch.core.store import StoreNetwork, StoreNode
+from repro_torch.core.store import StoreNetwork, StoreNode, store_tensor
 from repro_torch.fed import scorebatch
 from repro_torch.fed.cluster import Cluster
 from repro_torch.kernels import ops
@@ -439,13 +439,13 @@ def _rebuild_like(like, flat: Dict[str, np.ndarray]):
         raise ValueError(f"leaf count mismatch {len(vals)} != {len(items)}")
     cast = []
     for i, (v, (_, l)) in enumerate(zip(vals, items)):
-        arr = np.asarray(v)
-        if arr.size != l.numel():
+        t = store_tensor(v)
+        if t.numel() != l.numel():
             raise ValueError(
                 f"shape mismatch at leaf {i} ({keys[i]!r}): stored "
-                f"{arr.shape} cannot reshape to expected {tuple(l.shape)}")
-        cast.append(torch.from_numpy(np.array(arr)).reshape(l.shape)
-                    .to(device=l.device, dtype=l.dtype))
+                f"{tuple(t.shape)} cannot reshape to expected "
+                f"{tuple(l.shape)}")
+        cast.append(t.reshape(l.shape).to(device=l.device, dtype=l.dtype))
     return tree.unflatten([p for p, _ in items], cast)
 
 

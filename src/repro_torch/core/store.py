@@ -14,12 +14,16 @@ simulated time on the (src, dst) link, and per-node accounting lands in
 / ``prefetch_hits``). ``drain_transfer_time`` hands the accumulated charge
 to the orchestrator so WAN time enters the simulated clock. Decoded models
 land on the node's ``device`` (the silo's compute device), also when a
-prefetch warms the cache from a simulated-time event.
+prefetch warms the cache from a simulated-time event. A node keeps each
+CID's payload as one ``bytes``; the fabric counts its blocks from the
+length.
 
 The pytree codec is byte-compatible with the reference: its JSON header
 holds the same ``str(PyTreeDef)`` and ``jax.tree_util.keystr`` strings, here
 written without JAX, so equal params or envelopes give equal bytes and CIDs
-in both packages.
+in both packages. A bfloat16 leaf is written as its 16 bits under the dtype
+name ``bfloat16`` (numpy's ``ml_dtypes`` name, which the reference writes)
+and read back as a bfloat16 tensor: numpy has no bfloat16 of its own.
 """
 from __future__ import annotations
 
@@ -36,7 +40,6 @@ import torch
 from repro_torch import tree
 from repro_torch.obs.metrics import StatsView
 
-CHUNK_BYTES = 1 << 20  # 1 MiB blocks, IPFS-style
 DECODED_CACHE_MAX = 64  # CIDs kept in each node's decoded-model cache
 
 
@@ -64,10 +67,19 @@ def keystr(path) -> str:
     return "".join(f"[{k!r}]" for k in path)
 
 
-def _as_numpy(leaf) -> np.ndarray:
+BF16 = "bfloat16"
+
+
+def _as_numpy(leaf) -> Tuple[str, np.ndarray]:
+    """(the leaf's dtype name, a host array of its bytes)."""
     if isinstance(leaf, torch.Tensor):
-        return leaf.detach().cpu().numpy()
-    return np.asarray(leaf)
+        t = leaf.detach().cpu()
+        if t.dtype == torch.bfloat16:
+            return BF16, t.view(torch.int16).numpy()
+        a = t.numpy()
+    else:
+        a = np.asarray(leaf)
+    return str(a.dtype), a
 
 
 def serialize_pytree(t) -> bytes:
@@ -75,13 +87,13 @@ def serialize_pytree(t) -> bytes:
     arrs = [_as_numpy(l) for _, l in items]
     header = {
         "treedef": treedef_str(t),
-        "leaves": [{"dtype": str(a.dtype), "shape": list(a.shape)} for a in arrs],
+        "leaves": [{"dtype": dt, "shape": list(a.shape)} for dt, a in arrs],
         "paths": [keystr(p) for p, _ in items],
     }
     hb = json.dumps(header, sort_keys=True).encode()
     out = [len(hb).to_bytes(8, "little"), hb]
-    for a in arrs:
-        out.append(np.ascontiguousarray(a).tobytes())
+    for _, a in arrs:
+        out.append(memoryview(np.ascontiguousarray(a)))
     return b"".join(out)
 
 
@@ -93,11 +105,14 @@ def deserialize_pytree(data: bytes, like=None):
     off = 8 + hlen
     arrs = []
     for spec in header["leaves"]:
-        dt = np.dtype(spec["dtype"])
+        bf16 = spec["dtype"] == BF16
+        dt = np.dtype(np.int16 if bf16 else spec["dtype"])
         n = int(np.prod(spec["shape"])) if spec["shape"] else 1
         nb = n * dt.itemsize
-        a = np.frombuffer(data[off:off + nb], dtype=dt).reshape(spec["shape"])
-        arrs.append(a)
+        a = np.frombuffer(data, dtype=dt, count=n, offset=off
+                          ).reshape(spec["shape"])
+        arrs.append(torch.from_numpy(a.copy()).view(torch.bfloat16)
+                    if bf16 else a)
         off += nb
     if like is not None:
         paths = [p for p, _ in tree.leaves_with_paths(like)]
@@ -105,14 +120,16 @@ def deserialize_pytree(data: bytes, like=None):
     return dict(zip(header["paths"], arrs))
 
 
+def store_tensor(leaf) -> torch.Tensor:
+    """A deserialized leaf (a numpy array, or a bfloat16 tensor) as a CPU
+    tensor of its own."""
+    if isinstance(leaf, torch.Tensor):
+        return leaf
+    return torch.from_numpy(np.array(leaf))
+
+
 def compute_cid(data: bytes) -> str:
     return "bafy" + hashlib.sha256(data).hexdigest()
-
-
-def _chunk(data: bytes) -> List[bytes]:
-    """Split payload bytes into IPFS-style blocks."""
-    return [data[i:i + CHUNK_BYTES]
-            for i in range(0, len(data), CHUNK_BYTES)] or [b""]
 
 
 # --------------------------------------------------------------------------- #
@@ -129,7 +146,7 @@ class StoreNode:
         self.device = torch.device(device)
         self.root = root
         self.network: Optional["StoreNetwork"] = None
-        self._blocks: Dict[str, List[bytes]] = {}
+        self._blocks: Dict[str, bytes] = {}
         self._pins: set = set()
         self._peers: List["StoreNode"] = []
         self._lock = threading.Lock()
@@ -174,9 +191,8 @@ class StoreNode:
     def put(self, obj, *, pin: bool = True) -> str:
         data = serialize_pytree(obj) if not isinstance(obj, bytes) else obj
         cid = compute_cid(data)
-        chunks = _chunk(data)
         with self._lock:
-            self._blocks[cid] = chunks
+            self._blocks[cid] = data
             if pin:
                 self._pins.add(cid)
             self.stats["puts"] += 1
@@ -197,7 +213,7 @@ class StoreNode:
         """Local blocks / disk only — never touches the network."""
         with self._lock:
             if cid in self._blocks:
-                return b"".join(self._blocks[cid])
+                return self._blocks[cid]
         if self.root:
             p = os.path.join(self.root, cid)
             if os.path.exists(p):
@@ -222,7 +238,7 @@ class StoreNode:
                           f"{self.node_id}")
         with self._lock:
             if cid not in self._blocks:
-                self._blocks[cid] = _chunk(data)
+                self._blocks[cid] = data
                 self.stats["bytes_in"] += len(data)
                 # a demand fetch that raced us in already paid for these
                 # bytes — only a genuinely landing prefetch earns the credit
@@ -255,7 +271,7 @@ class StoreNode:
                     raise IOError(f"integrity failure fetching {cid} "
                                   f"from {peer.node_id}")
                 with self._lock:
-                    self._blocks[cid] = _chunk(data)
+                    self._blocks[cid] = data
                     self.stats["peer_fetches"] += 1
                     self.stats["bytes_fetched"] += len(data)
                 return data
@@ -297,7 +313,7 @@ class StoreNode:
             charged = fab.transfer(src_id, self.node_id, cid, len(data),
                                    kind=kind)
             with self._lock:
-                self._blocks[cid] = _chunk(data)
+                self._blocks[cid] = data
                 self.stats["peer_fetches"] += 1
                 self.stats["bytes_fetched"] += len(data)
                 self.stats["bytes_in"] += len(data)
@@ -402,9 +418,8 @@ class StoreNetwork:
         self.fabric = fabric
         for node in self.nodes.values():
             fabric.register_node(node.node_id)
-            for cid, chunks in node._blocks.items():
-                fabric.publish(cid, node.node_id,
-                               sum(len(c) for c in chunks))
+            for cid, data in node._blocks.items():
+                fabric.publish(cid, node.node_id, len(data))
 
     def add_node(self, node_id: str, device,
                  root: Optional[str] = None) -> StoreNode:

@@ -65,18 +65,33 @@ class SiloAggregator:
             else:
                 f32_peers.append((wi, p))
         for grp in groups.values():
-            q = torch.stack([p.q for _, p in grp])
-            s = torch.stack([p.scales for _, p in grp])
             gw = torch.tensor([float(wi) for wi, _ in grp],
-                              dtype=torch.float32, device=q.device)
-            mixed = mixed + ops.weighted_sum_q8(q, s, gw, n)
+                              dtype=torch.float32, device=own_vec.device)
+            # the [M, N] code stack lives only for the call
+            mixed = mixed + ops.weighted_sum_q8(
+                torch.stack([p.q for _, p in grp]),
+                torch.stack([p.scales for _, p in grp]), gw, n)
         for wi, p in f32_peers:
             mixed = mixed + float(wi) * p.vec()[:n]
         # mixed - own, then own + eta * delta: the reference's order, so the
-        # float32 roundings match
+        # float32 roundings match; mixed goes before the server step makes
+        # its two vectors
         delta = mixed - own_vec
+        del mixed
         if self._opt_state is None:
             self._opt_state = self.server_opt.init(own_vec)
         new, self._opt_state = self.server_opt.apply(own_vec, delta,
                                                      self._opt_state)
         return new
+
+    def apply_cross_silo(self, own_params, peer_params: List,
+                         weights: List[float]):
+        """Params-facing wrapper over the flat-vector merge."""
+        if not peer_params:
+            return own_params
+        spec = ops.make_flatten_spec(own_params)
+        own_vec, _ = ops.flatten_pytree(own_params, spec)
+        peers = [DecodedModel(int(v.shape[0]), vec=v)
+                 for v, _ in (ops.flatten_pytree(p, spec) for p in peer_params)]
+        new_vec = self.apply_cross_silo_vec(own_vec, peers, weights)
+        return ops.unflatten_pytree(new_vec, spec)

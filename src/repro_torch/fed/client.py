@@ -2,9 +2,11 @@
 Flower clients — SGD, 2 local epochs). Clients are unaware of UnifyFL; they
 receive a global model and return locally-trained weights + sample count.
 
-Batch order and byzantine noise come from the client's numpy ``rng``, drawn
-exactly as ``repro.fed.client`` draws them, so both packages see the same
-batches and the same noise from the same seed.
+Batch order, token-stream windows and byzantine noise come from the
+client's numpy ``rng``, drawn exactly as ``repro.fed.client`` draws them, so
+both packages see the same batches and the same noise from the same seed.
+A training step is a plain function, built once a client; there is no
+process-wide step cache.
 """
 from __future__ import annotations
 
@@ -12,8 +14,8 @@ from typing import Dict, Optional
 
 import numpy as np
 import torch
-from torch.func import grad_and_value
 
+from repro_torch import tree
 from repro_torch.models.api import Model
 from repro_torch.optim import make_optimizer
 from repro_torch.tree import tree_map
@@ -32,28 +34,33 @@ def validate_byzantine(mode: Optional[str], who: str) -> Optional[str]:
 
 def make_train_step(model: Model, opt_name: str = "sgd",
                     momentum: float = 0.0):
+    """One SGD/Adam step. The gradient is ``torch.autograd.grad`` of the
+    loss, which frees each saved activation once the backward has used
+    it; ``torch.func.grad`` differentiates with ``create_graph``, which
+    keeps them all and records the backward's own graph besides."""
     opt = make_optimizer(opt_name, momentum=momentum)
-    grad_fn = grad_and_value(model.loss, has_aux=True)
 
     def step(params, opt_state, batch, lr):
-        grads, (_, metrics) = grad_fn(params, batch)
-        params, opt_state = opt.update(grads, opt_state, params, lr)
-        return params, opt_state, metrics
+        paths, leaves = zip(*tree.leaves_with_paths(params))
+        leaves = [p.detach().requires_grad_() for p in leaves]
+        loss, metrics = model.loss(tree.unflatten(list(paths), leaves), batch)
+        grads = torch.autograd.grad(loss, leaves, allow_unused=True,
+                                    materialize_grads=True)
+        params, opt_state = opt.update(tree.unflatten(list(paths), grads),
+                                       opt_state, params, lr)
+        return params, opt_state, {k: v.detach() for k, v in metrics.items()}
 
     return step, opt
 
 
 class Client:
-    """One FL client with a private image shard {'x', 'y'}."""
+    """One FL client with a private image shard {'x', 'y'} or an LM stream
+    {'tokens', 'seq_len' (default 128), 'steps_per_epoch' (default 8)}."""
 
     def __init__(self, client_id: str, model: Model, data: Dict[str, np.ndarray],
                  *, device, batch_size: int = 32, lr: float = 0.01,
                  optimizer: str = "sgd", seed: int = 0,
                  byzantine: Optional[str] = None):
-        if "x" not in data:
-            raise NotImplementedError(
-                "token-stream clients are not ported yet (ROADMAP.md, "
-                "queue 1 item 5: LM training)")
         self.client_id = client_id
         self.model = model
         self.data = data
@@ -66,18 +73,32 @@ class Client:
 
     @property
     def n_samples(self) -> int:
-        return len(self.data["x"])
+        if "x" in self.data:
+            return len(self.data["x"])
+        return len(self.data["tokens"])
 
     def _batches(self, epochs: int):
-        n = len(self.data["x"])
+        if "x" in self.data:
+            n = len(self.data["x"])
+            for _ in range(epochs):
+                order = self.rng.permutation(n)
+                for i in range(0, n - self.batch_size + 1, self.batch_size):
+                    sel = order[i:i + self.batch_size]
+                    yield {"image": torch.as_tensor(self.data["x"][sel],
+                                                    device=self.device),
+                           "label": torch.as_tensor(self.data["y"][sel],
+                                                    device=self.device)}
+            return
+        stream = self.data["tokens"]
+        seq = self.data.get("seq_len", 128)
+        steps = self.data.get("steps_per_epoch", 8)
         for _ in range(epochs):
-            order = self.rng.permutation(n)
-            for i in range(0, n - self.batch_size + 1, self.batch_size):
-                sel = order[i:i + self.batch_size]
-                yield {"image": torch.as_tensor(self.data["x"][sel],
-                                                device=self.device),
-                       "label": torch.as_tensor(self.data["y"][sel],
-                                                device=self.device)}
+            for _ in range(steps):
+                starts = self.rng.integers(0, len(stream) - seq - 1,
+                                           self.batch_size)
+                win = np.stack([stream[s:s + seq + 1] for s in starts])
+                win = torch.from_numpy(win.astype(np.int64)).to(self.device)
+                yield {"tokens": win[:, :-1], "targets": win[:, 1:]}
 
     def local_train(self, params, epochs: int = 2):
         """Returns (trained params, n_samples, mean loss)."""

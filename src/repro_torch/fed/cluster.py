@@ -5,9 +5,11 @@ internally (clients -> FedAvg), evaluates on its private test set (which also
 serves as its scoring set when the silo acts as a scorer), and may be
 byzantine (submitting poisoned models — paper Figure 7).
 
-Its init draws from its own ``torch.Generator(seed)``: the reference draws
-from ``jax.random``, which no other framework reproduces, so parity tests
-install the reference's init (``repro_torch.interop``).
+Its init draws from its own ``torch.Generator(seed)``, unless the caller
+hands it ``init`` (the LM builder draws one common init for every silo, on
+the card at full width): the reference draws from ``jax.random``, which no
+other framework reproduces, so parity tests install the reference's init
+(``repro_torch.interop``).
 """
 from __future__ import annotations
 
@@ -29,7 +31,7 @@ class Cluster:
                  test_data: Dict[str, np.ndarray], device,
                  server_opt: str = "fedavg", local_epochs: int = 2,
                  byzantine: Optional[str] = None, seed: int = 0,
-                 edge_fleet=None):
+                 edge_fleet=None, init=None):
         self.silo_id = silo_id
         self.model = model
         self.clients = clients
@@ -38,8 +40,8 @@ class Cluster:
         self.aggregator = SiloAggregator(silo_id, server_opt)
         self.local_epochs = local_epochs
         self.byzantine = validate_byzantine(byzantine, silo_id)
-        self.params = model.init(torch.Generator().manual_seed(seed),
-                                 self.device)
+        self.params = (model.init(torch.Generator().manual_seed(seed),
+                                  self.device) if init is None else init)
         self.round = 0
         # hierarchical mode (repro_torch.edge): when set, the silo's trainer
         # population is an EdgeFleet — train_round delegates to it
@@ -87,3 +89,14 @@ class Cluster:
         the batched scoring engine with K=1 (one host transfer)."""
         params = self.params if params is None else params
         return scorebatch.evaluate_params(self, params)
+
+    # ------------------------------------------------------------------ #
+    def score_model(self, params, method: str = "accuracy") -> float:
+        """Score a peer model on the silo's private test set (paper §2.6:
+        accuracy scoring works in both sync and async modes)."""
+        m = self.evaluate(params)
+        if method == "accuracy":
+            return m["accuracy"]
+        if method == "loss":
+            return -m["loss"]
+        raise ValueError(method)

@@ -1,13 +1,17 @@
 """Batched scoring engine: vmapped multi-model evaluation, q8-direct ingest.
 
-Twin of ``repro.fed.scorebatch`` (image path). Every round each scorer silo
-evaluates every pulled peer model on its private test set (paper §2.6):
+Twin of ``repro.fed.scorebatch``. Every round each scorer silo evaluates
+every pulled peer model on its private test set (paper §2.6):
 
   * **Stack, don't loop.** All K peer models of a round stack along a
     leading axis into ONE params dict (leaves ``[K, ...]``) and evaluate in
-    one pass: a loop over test batches, each a ``torch.func.vmap`` over the
-    K models. The ``[2, K]`` (loss, accuracy) result comes back with a
-    **single** device->host copy (``BatchedScorer.host_syncs``).
+    one pass: for an image test set a loop over test batches, each a
+    ``torch.func.vmap`` over the K models; for a token stream a loop over
+    the K models and the stream's W windows (at most 4 of ``seq_len``),
+    one window a forward as the reference's ``lax.scan`` takes them (a
+    batch of one: a MoE's capacity depends on the batch). The ``[2, K]``
+    (loss, accuracy or ``exp(-loss)``) result comes back with a **single**
+    device->host copy (``BatchedScorer.host_syncs``).
 
   * **q8-direct ingest.** A round's packed int8 payloads are expanded by ONE
     batched dequantize kernel launch per padded length into a ``[K, n]``
@@ -106,6 +110,24 @@ def _eval_image(model, stacked, xb, yb, xr, yr):
     return torch.stack([loss / n, acc / n])
 
 
+def _eval_lm(model, stacked, tok, tgt):
+    """(stacked, tok [W, S], tgt [W, S]) -> [2, K] (loss, exp(-loss)): each
+    model's mean loss over the W windows, summed in window order in float32
+    as the reference's scan sums them."""
+    K = int(tree.leaves(stacked)[0].shape[0])
+    losses = []
+    for k in range(K):
+        params = tree.tree_map(lambda a: a[k], stacked)
+        total = torch.zeros((), dtype=torch.float32, device=tok.device)
+        for w in range(int(tok.shape[0])):
+            _, m = model.loss(params, {"tokens": tok[w:w + 1],
+                                       "targets": tgt[w:w + 1]})
+            total = total + m["loss"].to(torch.float32)
+        losses.append(total / tok.shape[0])
+    loss = torch.stack(losses)
+    return torch.stack([loss, torch.exp(-loss)])
+
+
 # --------------------------------------------------------------------------- #
 # Per-cluster scorer
 # --------------------------------------------------------------------------- #
@@ -120,17 +142,24 @@ class BatchedScorer:
         self.host_syncs = 0          # device->host transfers issued
 
     def _prepare(self, td, device) -> Dict:
+        dev = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(device)
         if "x" not in td:
-            raise NotImplementedError(
-                "token-stream scoring is not ported yet (ROADMAP.md, queue 1 "
-                "item 5: LM training)")
+            # the reference's windows: starts every seq_len tokens, at most 4
+            stream = np.asarray(td["tokens"])
+            seq = int(td.get("seq_len", 128))
+            starts = list(range(0, min(len(stream) - seq - 1, 4 * seq), seq))
+            if not starts:
+                return {"td": td, "kind": "empty", "args": None}
+            win = np.stack([stream[i:i + seq + 1] for i in starts])
+            win = dev(win.astype(np.int64))
+            return {"td": td, "kind": "lm",
+                    "args": (win[:, :-1], win[:, 1:])}
         x = np.asarray(td["x"])
         y = np.asarray(td["y"])
         bs = self.batch_size
         nb, _ = divmod(len(x), bs)
         cut = nb * bs
-        dev = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(device)
-        return {"td": td,
+        return {"td": td, "kind": "image",
                 "args": (dev(x[:cut].reshape(nb, bs, *x.shape[1:])),
                          dev(y[:cut].reshape(nb, bs)),
                          dev(x[cut:]), dev(y[cut:]))}
@@ -154,7 +183,12 @@ class BatchedScorer:
         """stacked: params with leaves [K, ...] -> host [2, K] (loss, acc)
         via exactly ONE device->host transfer."""
         p = self._prep()
-        out = _eval_image(self.cluster.model, stacked, *p["args"])
+        if p["kind"] == "empty":
+            # a stream shorter than one window: the reference's fallback
+            K = int(tree.leaves(stacked)[0].shape[0])
+            return np.stack([np.zeros(K), np.ones(K)])
+        run = _eval_image if p["kind"] == "image" else _eval_lm
+        out = run(self.cluster.model, stacked, *p["args"])
         host = out.cpu().numpy()     # the single device->host transfer
         self.host_syncs += 1
         return host

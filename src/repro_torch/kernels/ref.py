@@ -42,7 +42,9 @@ def weighted_sum_ordered(x, w):
     float64. The product is exact there (24 + 24 bits); TwoSum recovers what
     the float64 sum dropped, which decides a float32 tie. Bit for bit what
     the kernel gives, at any layout and vector width; a yardstick for its
-    order, not a path of the port. x: [M, N] f32, w: [M] -> [N] f32."""
+    order, not a path of the port. x: [M, N] f32, w: [M] -> [N] f32; or w
+    [M, N], one weight an element (``wsum_q8``'s ``w_m s_m`` against its
+    codes)."""
     acc = torch.zeros(x.shape[1], dtype=torch.float64, device=x.device)
     wf = w.to(device=x.device, dtype=torch.float64)
     inf = torch.tensor(float("inf"), dtype=torch.float32, device=x.device)

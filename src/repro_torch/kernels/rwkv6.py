@@ -9,6 +9,11 @@ computed at once from the chunk's incoming state, and the state stepped
 once a chunk on the tensor cores (three TF32 products a tile, float32
 accuracy); ``ref.wkv6_subchunks`` is the same arithmetic in PyTorch.
 
+The kernel has no backward yet: on the card a gradient taken through it
+(autograd or a ``torch.func`` transform) raises ``NotImplementedError``
+rather than cutting the time-mix gradients (``refuse_backward``). On the
+CPU the plain scan is differentiated as it stands.
+
 The kernel computes the exact recurrence, which the Pallas kernel
 approximates: that one clips each 32-token chunk's cumulative log-decay at
 -25 (``repro/kernels/rwkv6.py:45``) and so departs from it on fast-decaying
@@ -64,6 +69,19 @@ def kernel_operands(r, k, v, w):
     return r, k, v, w
 
 
+def refuse_backward(device: torch.device, tensors) -> None:
+    """Raise ``NotImplementedError`` when ``device`` is a CUDA device and a
+    gradient is being taken through ``tensors``: grad mode is on and one of
+    them requires grad, which is also how a tensor inside
+    ``torch.func.grad`` presents itself."""
+    if device.type == "cuda" and torch.is_grad_enabled() and \
+            any(t.requires_grad for t in tensors):
+        raise NotImplementedError(
+            "wkv6: the CUDA kernel has no backward, so RWKV-6 does not train "
+            "on the card yet (ROADMAP.md, queue 1: RWKV-6 training on the "
+            "card: a wkv6 backward kernel)")
+
+
 def wkv6(r, k, v, w, u, state):
     """r, k, v, w: [B, T, H, hs] (r, k, v f32 or bf16; w f32); u: [H, hs];
     state: [B, H, hs, hs] f32 -> (y [B, T, H, hs] in r.dtype, state' f32)."""
@@ -71,6 +89,7 @@ def wkv6(r, k, v, w, u, state):
         return ref.wkv6_naive(r, k, v, w, u, state)
     if r.device.type != "cuda":
         raise ValueError(f"wkv6: no kernel for device {r.device}")
+    refuse_backward(r.device, (r, k, v, w, u, state))
     B, T, H, hs = r.shape
     if hs not in HEAD_SIZES:
         raise ValueError(f"wkv6: head size {hs} not in {HEAD_SIZES}")

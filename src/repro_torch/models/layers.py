@@ -43,6 +43,16 @@ def layer_at(tree, i: int):
             for k, v in tree.items()}
 
 
+def unstack_layers(tree, n: int):
+    """The ``n`` slices of a tree of ``[n, ...]`` stacked layers, each leaf
+    unbound once. Under a gradient a stacked leaf then gets its ``[n, ...]``
+    gradient as one stack of its slices' gradients; ``layer_at`` in a loop
+    gives it a zero-filled ``[n, ...]`` tensor a layer, summed."""
+    parts = {k: (unstack_layers(v, n) if isinstance(v, dict)
+                 else torch.unbind(v)) for k, v in tree.items()}
+    return [{k: v[i] for k, v in parts.items()} for i in range(n)]
+
+
 # --------------------------------------------------------------------------- #
 # Norms
 # --------------------------------------------------------------------------- #

@@ -107,6 +107,28 @@ def _ddlerp(p, x, x_prev):
             for i in range(5)]
 
 
+class _Silu(torch.autograd.Function):
+    """``F.silu`` whose backward is, in every mode, the formula PyTorch
+    takes for it when grad mode is on (``torch.func.grad`` differentiates
+    so): its fused backward differs by ulps, and RWKV-6's training at the
+    smoke preset is ill-conditioned enough that they move a 2-round
+    federated run by 1e-2 (``tests/test_torch_lm_train_recurrent.py``)."""
+
+    @staticmethod
+    def forward(x):
+        return F.silu(x)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        ctx.save_for_backward(inputs[0])
+
+    @staticmethod
+    def backward(ctx, grad):
+        x, = ctx.saved_tensors
+        s = torch.sigmoid(x)
+        return grad * s * (1.0 + x * (1.0 - s))
+
+
 def time_mix(p, x, cfg: ModelConfig, x_prev, state):
     """x: [B,S,D]; x_prev: [B,1,D] last token of the previous segment;
     state: [B,H,hs,hs]. Returns (out, new_x_prev, new_state)."""
@@ -118,7 +140,7 @@ def time_mix(p, x, cfg: ModelConfig, x_prev, state):
     r = xr @ p["wr"].to(x.dtype)
     k = xk @ p["wk"].to(x.dtype)
     v = xv @ p["wv"].to(x.dtype)
-    g = F.silu(xg @ p["wg"].to(x.dtype))
+    g = _Silu.apply(xg @ p["wg"].to(x.dtype))
     dw = (torch.tanh(xw) @ p["decay_w1"].to(x.dtype)) @ \
         p["decay_w2"].to(x.dtype)
     w = torch.exp(-torch.exp(p["decay_base"].to(torch.float32) +

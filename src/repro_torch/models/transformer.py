@@ -4,8 +4,7 @@ Twin of ``repro.models.transformer``.
 Params keep the reference's layout: the per-layer leaves are stacked
 ``[L, ...]`` as ``jax.vmap`` makes them, so a reference init installs leaf
 for leaf (``repro_torch.interop``). The forward is a Python loop over the
-layers (no scan, no rematerialisation: the port serves, it does not train
-LMs yet). The KV cache is ``{"k", "v"}``, each ``[L, B, W, KV, hd]`` in the
+layers (no scan, no rematerialisation). The KV cache is ``{"k", "v"}``, each ``[L, B, W, KV, hd]`` in the
 compute dtype; ``decode_step`` writes the new token's keys into it in place
 and returns it. A ``moe`` layer has ``"moe"`` (``models/moe.py``, its
 experts stacked ``[L, E, ...]``) in place of ``"mlp"``; its load-balance
@@ -64,8 +63,7 @@ def forward(params, tokens, cfg: ModelConfig, *, collect_kv: bool = False):
                              device=x.device).expand(B, S)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     ks, vs = [], []
-    for i in range(cfg.n_layers):
-        lp = L.layer_at(params["layers"], i)
+    for lp in L.unstack_layers(params["layers"], cfg.n_layers):
         h, (k, v) = L.attention_block(
             lp["attn"], L.rms_norm(x, lp["attn_norm"], cfg.norm_eps), cfg,
             positions=positions)

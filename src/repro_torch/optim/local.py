@@ -3,6 +3,10 @@
 Functional interface over nested dicts of tensors, as in ``repro``:
 opt.init(params) -> state; opt.update(grads, state, params, lr) ->
 (new_params, new_state). The paper's clients use plain SGD lr=0.01.
+
+``lr`` is a Python float. SGD's ``p - lr * g`` runs in, and returns,
+float32 at least: the reference's client passes ``jnp.float32(lr)``, a
+float32 array, and JAX promotes a bf16 leaf against it.
 """
 from __future__ import annotations
 
@@ -20,6 +24,13 @@ class Optimizer:
     update: Callable
 
 
+def _descend(p, lr, u):
+    """``p - lr * u`` in float32 at least (JAX's promotion of a bf16 leaf
+    against a float32 array)."""
+    dt = torch.promote_types(p.dtype, torch.float32)
+    return p.to(dt) - lr * u.to(dt)
+
+
 def sgd(momentum: float = 0.0, weight_decay: float = 0.0) -> Optimizer:
     def init(params):
         if momentum == 0.0:
@@ -30,9 +41,10 @@ def sgd(momentum: float = 0.0, weight_decay: float = 0.0) -> Optimizer:
         if weight_decay:
             grads = tree_map(lambda g, p: g + weight_decay * p, grads, params)
         if momentum == 0.0:
-            return tree_map(lambda p, g: p - lr * g, params, grads), ()
+            return tree_map(lambda p, g: _descend(p, lr, g), params,
+                            grads), ()
         new_m = tree_map(lambda m, g: momentum * m + g, state, grads)
-        new_params = tree_map(lambda p, m: p - lr * m, params, new_m)
+        new_params = tree_map(lambda p, m: _descend(p, lr, m), params, new_m)
         return new_params, new_m
 
     return Optimizer(init, update)

@@ -150,3 +150,62 @@ def test_gpu_lm_families_match_the_cpu(arch, over):
     cpu, _ = run(tree_map(lambda t: t.cpu(), params), "cpu", feed)
     for a, b in zip(card, cpu):
         assert (a - b).abs().max() <= GPU_REL * b.abs().max()
+
+
+def _lm_run(device, arch="qwen3-1.7b"):
+    from repro_torch.core.builder import build_lm_experiment
+    fed = FedConfig(n_silos=3, clients_per_silo=2, rounds=2, local_epochs=1,
+                    scorer="loss", agg_policy="top_k", policy_k=2,
+                    compression="int8")
+    orch = build_lm_experiment(replace(get_smoke_config(arch), **F32), fed,
+                               seq_len=32, batch_size=4, steps_per_epoch=2,
+                               stream_len=6000, device=device)
+    orch.run(2)
+    return orch, [s.cluster.evaluate()["loss"] for s in orch.silos]
+
+
+@pytest.mark.gpu
+def test_gpu_lm_training_matches_the_cpu():
+    """Two Sync rounds of federated LM training (int8, loss scoring) at
+    qwen3-1.7b's smoke preset in float32: the CPU run's picks and ledger
+    height, eval losses within 1e-5 and each silo's parameters within 1e-5
+    of the CPU's, as a norm of the difference over the norm
+    (``chip_smoke.py``'s LM_LOSS_TOL and LM_PARAM_RTOL), and the path's
+    four kernels launched."""
+    from repro_torch.kernels import ops
+    _cuda()
+    _build.reset_launches()
+    card, card_loss = _lm_run("cuda")
+    launches = _build.launch_counts()
+    cpu, cpu_loss = _lm_run("cpu")
+    assert [s.pick_log for s in card.silos] == [s.pick_log for s in cpu.silos]
+    assert card.ledger.height == cpu.ledger.height
+    assert max(abs(a - b) for a, b in zip(card_loss, cpu_loss)) <= 1e-5
+    for a, b in zip(card.silos, cpu.silos):
+        va = ops.flatten_pytree(a.cluster.params)[0].cpu().double()
+        vb = ops.flatten_pytree(b.cluster.params)[0].double()
+        assert (va - vb).norm() <= 1e-5 * vb.norm()
+    assert all(launches[k] > 0 for k in ("weighted_sum", "quantize",
+                                         "dequantize", "wsum_q8"))
+
+
+@pytest.mark.gpu
+def test_gpu_rwkv6_training_step_raises():
+    """A training step of a 2-layer RWKV-6 on the card reaches the ``wkv6``
+    kernel under ``torch.func.grad_and_value``: it raises, naming the
+    ROADMAP item, instead of cutting the time-mix gradients."""
+    from repro_torch.data.synthetic import make_lm_dataset
+    from repro_torch.fed.client import Client
+    dev = _cuda()
+    cfg = get_smoke_config("rwkv6-1.6b")
+    assert cfg.n_layers == 2
+    model = build_model(cfg)
+    params = model.init(torch.Generator().manual_seed(0), dev)
+    stream = make_lm_dataset(vocab=cfg.vocab_size, length=2000, seed=0)[0]
+    client = Client("c", model, {"tokens": stream, "seq_len": 32,
+                                 "steps_per_epoch": 1}, device=dev,
+                    batch_size=2)
+    with pytest.raises(NotImplementedError,
+                       match="RWKV-6 training on the card: a wkv6 backward "
+                             "kernel"):
+        client.local_train(params, 1)

@@ -33,7 +33,9 @@ GUARD = textwrap.dedent("""
                  "repro_torch.net.faults", "repro_torch.chain.sync",
                  "repro_torch.obs.report", "repro_torch.chain.light",
                  "repro_torch.edge.devices", "repro_torch.edge.fleet",
-                 "repro_torch.fed.hbfl", "repro_torch.models.transformer"):
+                 "repro_torch.fed.hbfl", "repro_torch.models.transformer",
+                 "repro_torch.optim.schedules", "repro_torch.launch.train",
+                 "repro_torch.checkpoint", "repro_torch.checkpoint.checkpoint"):
         assert must in names, must
     for name in names:
         importlib.import_module(name)

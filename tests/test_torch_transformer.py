@@ -23,6 +23,7 @@ from repro.configs import get_smoke_config as jsmoke
 from repro.launch import serve as jserve
 from repro.models import build_model as jbuild
 from repro.models import layers as JL
+from repro_torch import tree
 from repro_torch.config import replace as treplace
 from repro_torch.configs import get_smoke_config as tsmoke
 from repro_torch.interop import params_from_numpy
@@ -218,3 +219,25 @@ def test_moe_family_waits_for_its_slice(arch):
     assert tbuild(tsmoke(arch)).kind == "decoder"
     p = ttrans.init_params(torch.Generator(), tsmoke(arch), "cpu")
     assert "moe" in p["layers"] and "mlp" not in p["layers"]
+
+
+def test_unstacked_layers_give_the_sliced_gradients(monkeypatch):
+    """The forward unbinds each stacked ``[L, ...]`` weight once
+    (``layers.unstack_layers``): its gradients are bit for bit those of
+    slicing a layer at a time (``layers.layer_at``), which zero-fills an
+    ``[L, ...]`` gradient a layer."""
+    cfg = treplace(tsmoke("qwen3-1.7b"), **F32)
+    model = tbuild(cfg)
+    params = model.init(torch.Generator().manual_seed(0), "cpu")
+    g = torch.Generator().manual_seed(1)
+    tok = torch.randint(0, cfg.vocab_size, (B, S + 1), generator=g)
+    batch = {"tokens": tok[:, :-1], "targets": tok[:, 1:]}
+    grad = torch.func.grad(lambda p: model.loss(p, batch)[0])
+    got = grad(params)
+    sliced = []
+    monkeypatch.setattr(TL, "unstack_layers", lambda t, n: sliced.append(n)
+                        or [TL.layer_at(t, i) for i in range(n)])
+    want = dict(tree.leaves_with_paths(grad(params)))
+    assert sliced == [cfg.n_layers]
+    for path, a in tree.leaves_with_paths(got):
+        assert torch.equal(a, want[path]), path
