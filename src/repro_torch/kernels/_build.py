@@ -24,7 +24,8 @@ from pathlib import Path
 from typing import Dict, Optional, Sequence, Tuple
 
 CSRC = Path(__file__).resolve().parent / "csrc"
-SOURCES = ("wsum.cu", "quant.cu", "q8agg.cu", "multikrum.cu", "wkv6.cu")
+SOURCES = ("wsum.cu", "quant.cu", "q8agg.cu", "multikrum.cu", "wkv6.cu",
+           "wkv6_bwd.cu")
 HEADERS = ("gram.cuh", "stream.cuh")
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
 # no --use_fast_math: it turns x / scale into an approximate division, and

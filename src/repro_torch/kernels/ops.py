@@ -212,5 +212,7 @@ def wkv6(r, k, v, w, u, state):
     """r, k, v, w: [B, T, H, hs]; u: [H, hs]; state: [B, H, hs, hs] f32 ->
     (y [B, T, H, hs] in r.dtype, state' f32). Any T: the kernel masks its
     tail chunk per token, so the reference's chunk padding and head folding
-    go away."""
+    go away. On the card through ``rwkv6.WKV6``, whose backward is the
+    ``wkv6_backward`` kernel, when a gradient is taken, else the forward
+    kernel alone; on the CPU the plain scan, differentiated by autograd."""
     return _rwkv.wkv6(r, k, v, w, u, state)

@@ -218,3 +218,48 @@ def wkv6_subchunks(r, k, v, w, u, state, chunk: int = 32, sub: int = 16):
         S = before[..., None] * S + torch.einsum("bhsi,bhsj->bhij", kq, V)
     y = torch.cat(ys, 2)[:, :, :T].transpose(1, 2)
     return y.to(r.dtype), S
+
+
+def wkv6_backward_naive(r, k, v, w, u, state, dy, dstate=None):
+    """The gradients of ``wkv6_naive``, as an explicit reverse token scan in
+    float32 (the yardstick of the ``wkv6_backward`` kernel; the model's CPU
+    path differentiates ``wkv6_naive`` with autograd instead). r, k, v, w,
+    dy: [B, T, H, hs]; u: [H, hs]; state, dstate: [B, H, hs, hs] (dstate
+    None: the final state is discarded) -> (dr, dk, dv in r's dtype, dw in
+    w's, du in u's, dstate0 in state's).
+
+    With S_t = diag(w_t) S_{t-1} + k_t v_t^T and G_t the gradient of S_t
+    (G_T = dstate), from t = T down to 1::
+
+      dr_t = S_{t-1} dy_t + u * k_t (dy_t . v_t)
+      dk_t = G_t v_t      + u * r_t (dy_t . v_t)
+      dv_t = G_t^T k_t    + (r_t . (u * k_t)) dy_t
+      dw_t = rowsum(G_t * S_{t-1})
+      du  += r_t * k_t (dy_t . v_t)
+      G_{t-1} = diag(w_t) G_t + r_t dy_t^T
+
+    and dstate0 = G_0. The states S_{t-1} are kept from a forward scan."""
+    rf, kf, vf, wf, dyf = (a.to(torch.float32) for a in (r, k, v, w, dy))
+    uf = u.to(torch.float32)[None]
+    S = state.to(torch.float32)
+    states = []
+    for t in range(r.shape[1]):
+        states.append(S)
+        S = S * wf[:, t, :, :, None] + torch.einsum(
+            "bhk,bhv->bhkv", kf[:, t], vf[:, t])
+    G = torch.zeros_like(S) if dstate is None else dstate.to(torch.float32)
+    dr, dk, dv, dw = (torch.empty_like(rf) for _ in range(4))
+    du = torch.zeros_like(uf[0])
+    for t in reversed(range(r.shape[1])):
+        St = states[t]
+        rt, kt, vt, wt, dyt = (a[:, t] for a in (rf, kf, vf, wf, dyf))
+        dyv = torch.sum(dyt * vt, dim=-1, keepdim=True)
+        dr[:, t] = torch.einsum("bhkv,bhv->bhk", St, dyt) + uf * kt * dyv
+        dk[:, t] = torch.einsum("bhkv,bhv->bhk", G, vt) + uf * rt * dyv
+        dv[:, t] = torch.einsum("bhkv,bhk->bhv", G, kt) + torch.sum(
+            rt * uf * kt, dim=-1, keepdim=True) * dyt
+        dw[:, t] = torch.sum(G * St, dim=-1)
+        du = du + torch.sum(rt * kt * dyv, dim=0)
+        G = G * wt[..., None] + torch.einsum("bhk,bhv->bhkv", rt, dyt)
+    return (dr.to(r.dtype), dk.to(k.dtype), dv.to(v.dtype), dw.to(w.dtype),
+            du.to(u.dtype), G.to(state.dtype))

@@ -1,18 +1,15 @@
-"""WKV6 recurrence of RWKV-6 over a segment, with its final state.
+"""WKV6 recurrence of RWKV-6 over a segment, with its final state, and its
+gradient.
 
 Replaces the Pallas kernel ``repro/kernels/rwkv6.py:68`` (``wkv6``), the
-time-mix recurrence of every RWKV-6 prefill. CUDA source: ``csrc/wkv6.cu``.
-Bound on the card: float32 operations at hs = 64 (``5*hs^2 + 5*hs`` a
-token and head against 12 bytes an element). One block per (batch, head);
-tokens in chunks of 32, two sub-chunks of 16, every output of a chunk
-computed at once from the chunk's incoming state, and the state stepped
-once a chunk on the tensor cores (three TF32 products a tile, float32
-accuracy); ``ref.wkv6_subchunks`` is the same arithmetic in PyTorch.
-
-The kernel has no backward yet: on the card a gradient taken through it
-(autograd or a ``torch.func`` transform) raises ``NotImplementedError``
-rather than cutting the time-mix gradients (``refuse_backward``). On the
-CPU the plain scan is differentiated as it stands.
+time-mix recurrence of every RWKV-6 prefill and training step. CUDA source:
+``csrc/wkv6.cu``. Bound on the card: float32 operations at hs = 64
+(``5*hs^2 + 5*hs`` a token and head against 12 bytes an element). One
+block per (batch, head); tokens in chunks of 32, two sub-chunks of 16,
+every output of a chunk computed at once from the chunk's incoming state,
+and the state stepped once a chunk on the tensor cores (three TF32 products
+a tile, float32 accuracy); ``ref.wkv6_subchunks`` is the same arithmetic in
+PyTorch.
 
 The kernel computes the exact recurrence, which the Pallas kernel
 approximates: that one clips each 32-token chunk's cumulative log-decay at
@@ -20,6 +17,17 @@ approximates: that one clips each 32-token chunk's cumulative log-decay at
 channels. This one forms every decay as a product of ``w`` from a
 sub-chunk boundary (no log, exp or division). The plain version is
 ``ref.wkv6_naive``.
+
+On the card, ``wkv6`` goes through ``WKV6``, a ``torch.autograd.Function``
+whose backward is a second kernel, ``csrc/wkv6_bwd.cu`` (no Pallas
+counterpart: the reference differentiates its jnp forms). It walks the
+tokens back with the states recomputed forward from checkpoints every 32
+tokens, never divided out of ``w``; its plain version is
+``ref.wkv6_backward_naive``. It serves ``torch.autograd.grad`` and the
+``torch.func`` transforms alike; a call that takes no gradient skips it
+and launches the forward kernel directly. On the CPU, ``wkv6`` is the plain scan,
+which autograd differentiates as it stands; ``WKV6`` on CPU tensors runs
+the two plain versions, for the tests.
 """
 from __future__ import annotations
 
@@ -35,6 +43,11 @@ _KERNEL = _build.register(
     "wkv6", "repro_wkv6",
     [ctypes.c_void_p] * 8 + [ctypes.c_int] * 5 + [ctypes.c_int64] * 6
     + [ctypes.c_void_p])
+_BACKWARD = _build.register(
+    "wkv6_backward", "repro_wkv6_backward",
+    [ctypes.c_void_p] * 17 + [ctypes.c_int] * 5 + [ctypes.c_int64] * 9
+    + [ctypes.c_void_p])
+CHECKPOINT = 32    # tokens between the backward's stored states
 
 
 def _rows_strided(t):
@@ -69,27 +82,7 @@ def kernel_operands(r, k, v, w):
     return r, k, v, w
 
 
-def refuse_backward(device: torch.device, tensors) -> None:
-    """Raise ``NotImplementedError`` when ``device`` is a CUDA device and a
-    gradient is being taken through ``tensors``: grad mode is on and one of
-    them requires grad, which is also how a tensor inside
-    ``torch.func.grad`` presents itself."""
-    if device.type == "cuda" and torch.is_grad_enabled() and \
-            any(t.requires_grad for t in tensors):
-        raise NotImplementedError(
-            "wkv6: the CUDA kernel has no backward, so RWKV-6 does not train "
-            "on the card yet (ROADMAP.md, queue 1: RWKV-6 training on the "
-            "card: a wkv6 backward kernel)")
-
-
-def wkv6(r, k, v, w, u, state):
-    """r, k, v, w: [B, T, H, hs] (r, k, v f32 or bf16; w f32); u: [H, hs];
-    state: [B, H, hs, hs] f32 -> (y [B, T, H, hs] in r.dtype, state' f32)."""
-    if r.device.type == "cpu":
-        return ref.wkv6_naive(r, k, v, w, u, state)
-    if r.device.type != "cuda":
-        raise ValueError(f"wkv6: no kernel for device {r.device}")
-    refuse_backward(r.device, (r, k, v, w, u, state))
+def _check(r, k, v, w, u, state):
     B, T, H, hs = r.shape
     if hs not in HEAD_SIZES:
         raise ValueError(f"wkv6: head size {hs} not in {HEAD_SIZES}")
@@ -104,12 +97,108 @@ def wkv6(r, k, v, w, u, state):
                          f"state{tuple(state.shape)}")
     if any(a.device != r.device for a in (k, v, w, u, state)):
         raise ValueError("wkv6: r, k, v, w, u and state must share a device")
+
+
+def _ptr(t):
+    return ctypes.c_void_p(None if t is None else t.data_ptr())
+
+
+def forward(r, k, v, w, u, state):
+    """The forward kernel on checked CUDA tensors."""
+    B, T, H, hs = r.shape
     r, k, v, w = kernel_operands(r, k, v, w)
     u = u.to(torch.float32).contiguous()
     s0 = state.to(torch.float32).contiguous()
     y = torch.empty((B, T, H, hs), dtype=r.dtype, device=r.device)
     s1 = torch.empty_like(s0)
-    ptrs = (ctypes.c_void_p(a.data_ptr()) for a in (r, k, v, w, u, s0, y, s1))
-    _KERNEL(*ptrs, B, H, T, hs, int(r.dtype == torch.bfloat16),
+    _KERNEL(*(_ptr(a) for a in (r, k, v, w, u, s0, y, s1)), B, H, T, hs, int(r.dtype == torch.bfloat16),
             *r.stride()[:3], *w.stride()[:3], _build.stream_of(r))
     return y, s1
+
+
+def backward(r, k, v, w, u, state, dy, dstate=None,
+             needs=(True,) * 6):
+    """The backward kernel on checked CUDA tensors: (dr, dk, dv, dw, du,
+    dstate0), each None where ``needs`` (the six inputs' flags) says so.
+    ``dy`` of any strides (an expanded or sliced cotangent is made what the
+    kernel reads); ``dstate`` None when the final state is discarded. The
+    checkpoints and the chunk's states are scratch of this call: [B, H,
+    ceil(T / 32), hs, hs] and [B, H, 32, hs, hs] f32."""
+    B, T, H, hs = r.shape
+    dev = r.device
+    r, k, v, w = kernel_operands(r, k, v, w)
+    dy = _rows_strided(dy.to(r.dtype))
+    u = u.to(torch.float32).contiguous()
+    s0 = state.to(torch.float32).contiguous()
+    if dstate is not None:
+        dstate = dstate.to(torch.float32).contiguous()
+    out = lambda dt: torch.empty((B, T, H, hs), dtype=dt, device=dev)
+    dr, dk, dv = (out(r.dtype) if n else None for n in needs[:3])
+    dw = out(torch.float32) if needs[3] else None
+    du = du_part = None
+    if needs[4]:
+        du = torch.empty((H, hs), dtype=torch.float32, device=dev)
+        du_part = torch.empty((B, H, hs), dtype=torch.float32, device=dev)
+    ds0 = torch.empty_like(s0) if needs[5] else None
+    ckpt = chunk = None
+    if any(needs[i] for i in (0, 1, 3, 4, 5)):
+        nck = -(-T // CHECKPOINT)
+        ckpt = torch.empty((B, H, nck, hs, hs), dtype=torch.float32,
+                           device=dev)
+        chunk = torch.empty((B, H, CHECKPOINT, hs, hs), dtype=torch.float32,
+                            device=dev)
+    _BACKWARD(*(_ptr(a) for a in (r, k, v, w, u, s0, dy, dstate, dr, dk, dv,
+                                  dw, du, du_part, ds0, ckpt, chunk)),
+              B, H, T, hs, int(r.dtype == torch.bfloat16),
+              *r.stride()[:3], *w.stride()[:3], *dy.stride()[:3],
+              _build.stream_of(r))
+    return dr, dk, dv, dw, du, ds0
+
+
+class WKV6(torch.autograd.Function):
+    """``wkv6`` with a backward: on CUDA tensors the two kernels, on CPU
+    tensors ``ref.wkv6_naive`` and ``ref.wkv6_backward_naive`` (for the
+    tests). ``setup_context`` style, so ``torch.func`` transforms go
+    through it as autograd does. Only the gradients in
+    ``ctx.needs_input_grad`` are computed; a discarded final state arrives
+    as None (grads are not materialised)."""
+
+    @staticmethod
+    def forward(r, k, v, w, u, state):
+        if r.device.type == "cpu":
+            return ref.wkv6_naive(r, k, v, w, u, state)
+        return forward(r, k, v, w, u, state)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        ctx.save_for_backward(*inputs)
+        ctx.set_materialize_grads(False)
+
+    @staticmethod
+    def backward(ctx, dy, dstate):
+        r, k, v, w, u, state = ctx.saved_tensors
+        needs = tuple(ctx.needs_input_grad)
+        if dy is None:
+            dy = torch.zeros_like(r)
+        if r.device.type == "cpu":
+            grads = ref.wkv6_backward_naive(r, k, v, w, u, state, dy, dstate)
+            return tuple(g if n else None for g, n in zip(grads, needs))
+        return backward(r, k, v, w, u, state, dy, dstate, needs)
+
+
+def wkv6(r, k, v, w, u, state):
+    """r, k, v, w: [B, T, H, hs] (r, k, v f32 or bf16; w f32); u: [H, hs];
+    state: [B, H, hs, hs] f32 -> (y [B, T, H, hs] in r.dtype, state' f32).
+    A CPU tensor takes the plain scan (autograd differentiates it); a CUDA
+    tensor goes through ``WKV6``, the two kernels, where a gradient is
+    being taken, and straight to the forward kernel where none is (a
+    prefill or an eval skips the Function's host cost)."""
+    if r.device.type == "cpu":
+        return ref.wkv6_naive(r, k, v, w, u, state)
+    if r.device.type != "cuda":
+        raise ValueError(f"wkv6: no kernel for device {r.device}")
+    _check(r, k, v, w, u, state)
+    if torch.is_grad_enabled() and any(
+            a.requires_grad for a in (r, k, v, w, u, state)):
+        return WKV6.apply(r, k, v, w, u, state)
+    return forward(r, k, v, w, u, state)

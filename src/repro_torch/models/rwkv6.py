@@ -7,11 +7,12 @@ low-rank MLP, bonus u, and per head the WKV recurrence
 
     y_t = (S + diag(u) k_t v_t^T)^T r_t ;  S <- diag(w_t) S + k_t v_t^T
 
-Prefill runs the recurrence through ``kernels.ops.wkv6`` (the CUDA kernel on
-the card, the token scan on the CPU); decode steps one token in plain
-PyTorch, as the reference does. Params keep the reference's layout: the
-per-layer leaves are stacked ``[L, ...]`` as ``jax.vmap`` makes them, so a
-reference init installs leaf for leaf.
+Prefill and training run the recurrence through ``kernels.ops.wkv6`` (on
+the card the CUDA kernels, forward and backward; on the CPU the token
+scan); decode steps one token in plain PyTorch, as the reference does.
+Params keep the reference's layout: the per-layer leaves are stacked
+``[L, ...]`` as ``jax.vmap`` makes them, so a reference init installs leaf
+for leaf.
 """
 from __future__ import annotations
 
@@ -76,7 +77,9 @@ def init_params(generator: torch.Generator, cfg: ModelConfig, device):
 
 def wkv(r, k, v, w, u, state):
     """r, k, v, w: [B, T, H, hs]; u: [H, hs]; state: [B, H, hs, hs] f32.
-    The CUDA kernel for a tensor on the card, the token scan on the CPU."""
+    On the card the ``WKV6`` Function (the ``wkv6`` kernel forward, the
+    ``wkv6_backward`` kernel backward); on the CPU the token scan, which
+    autograd differentiates."""
     return ops.wkv6(r, k, v, w, u, state)
 
 
@@ -203,8 +206,7 @@ def forward(params, tokens, cfg: ModelConfig, state=None):
     if state is None:
         state = init_state(cfg, B, x.device)
     new = {name: [] for name in state}
-    for i in range(cfg.n_layers):
-        lp = {name: leaf[i] for name, leaf in params["layers"].items()}
+    for i, lp in enumerate(L.unstack_layers(params["layers"], cfg.n_layers)):
         x, st = _layer(cfg, x, lp, {name: s[i] for name, s in state.items()})
         for name in new:
             new[name].append(st[name])

@@ -189,23 +189,97 @@ def test_gpu_lm_training_matches_the_cpu():
                                          "dequantize", "wsum_q8"))
 
 
+GRAD_REL = 1e-4   # of each leaf's largest gradient (test_torch_rwkv6_train)
+TIME_MIX = ("wr", "wk", "wv", "wg", "decay_base", "decay_w1", "decay_w2",
+            "bonus_u", "mix_mu", "mix_w1", "mix_w2")
+
+
+def _rwkv6_grads(model, params, batch):
+    paths, leaves = zip(*tree.leaves_with_paths(params))
+    leaves = [p.detach().requires_grad_() for p in leaves]
+    loss, _ = model.loss(tree.unflatten(list(paths), leaves), batch)
+    return dict(zip(paths, torch.autograd.grad(loss, leaves)))
+
+
 @pytest.mark.gpu
-def test_gpu_rwkv6_training_step_raises():
-    """A training step of a 2-layer RWKV-6 on the card reaches the ``wkv6``
-    kernel under ``torch.func.grad_and_value``: it raises, naming the
-    ROADMAP item, instead of cutting the time-mix gradients."""
+def test_gpu_rwkv6_client_step_matches_the_cpu():
+    """One client step's gradients of the 2-layer RWKV-6 smoke preset in
+    float32, on the client's first batch of its Markov stream: on the card
+    through the ``wkv6`` and ``wkv6_backward`` kernels, within GRAD_REL of
+    the CPU's (autograd of the plain scan), and every time-mix leaf's
+    gradient nonzero."""
     from repro_torch.data.synthetic import make_lm_dataset
     from repro_torch.fed.client import Client
     dev = _cuda()
-    cfg = get_smoke_config("rwkv6-1.6b")
+    cfg = replace(get_smoke_config("rwkv6-1.6b"), **F32)
     assert cfg.n_layers == 2
     model = build_model(cfg)
-    params = model.init(torch.Generator().manual_seed(0), dev)
+    params = model.init(torch.Generator().manual_seed(0), "cpu")
     stream = make_lm_dataset(vocab=cfg.vocab_size, length=2000, seed=0)[0]
     client = Client("c", model, {"tokens": stream, "seq_len": 32,
-                                 "steps_per_epoch": 1}, device=dev,
+                                 "steps_per_epoch": 1}, device="cpu",
                     batch_size=2)
-    with pytest.raises(NotImplementedError,
-                       match="RWKV-6 training on the card: a wkv6 backward "
-                             "kernel"):
-        client.local_train(params, 1)
+    batch = next(client._batches(1))
+    _build.reset_launches()
+    card = _rwkv6_grads(model, tree_map(lambda a: a.to(dev), params),
+                        {k: a.to(dev) for k, a in batch.items()})
+    launches = _build.launch_counts()
+    cpu = _rwkv6_grads(model, params, batch)
+    assert launches["wkv6"] == 2 and launches["wkv6_backward"] == 2
+    for path, want in cpu.items():
+        got = card[path].cpu()
+        top = float(want.abs().max())
+        assert float((got - want).abs().max()) <= GRAD_REL * top, path
+        if path[-1] in TIME_MIX:
+            assert float(got.abs().max()) > 0, path
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("B,T,H,hs,dtype", [
+    (2, 70, 4, 16, torch.float32), (2, 70, 4, 16, torch.bfloat16),
+    (3, 100, 2, 64, torch.bfloat16), (1, 1, 2, 64, torch.float32)])
+def test_gpu_wkv6_backward_matches_its_plain_version(B, T, H, hs, dtype):
+    """The ``wkv6_backward`` kernel against ``ref.wkv6_backward_naive`` on
+    the card, ragged T, with a final state's gradient: each gradient within
+    1e-4 of its max|.| in f32, one bf16 ulp (2^-7) of it in bf16."""
+    from repro_torch.kernels import ref, rwkv6
+    dev = _cuda()
+    g = torch.Generator(device=dev).manual_seed(B * T + hs)
+    n = lambda *s: torch.randn(s, generator=g, device=dev)
+    r, k, v, dy = (n(B, T, H, hs).to(dtype) for _ in range(4))
+    w = torch.sigmoid(2.0 * n(B, T, H, hs))
+    u, s0, ds = n(H, hs) * 0.3, n(B, H, hs, hs) * 0.1, n(B, H, hs, hs)
+    got = rwkv6.backward(r, k, v, w, u, s0, dy, ds)
+    want = ref.wkv6_backward_naive(r, k, v, w, u, s0, dy, ds)
+    for name, a, b in zip(("dr", "dk", "dv", "dw", "du", "dstate"),
+                          got, want):
+        assert a.dtype == b.dtype, name
+        tol = (2.0 ** -7 if a.dtype == torch.bfloat16 else 1e-4) * \
+            float(b.float().abs().max())
+        assert float((a.float() - b.float()).abs().max()) <= tol, name
+
+
+@pytest.mark.gpu
+def test_gpu_wkv6_takes_its_function_only_under_a_gradient():
+    """Outside a gradient ``wkv6`` launches the forward kernel directly
+    and records no autograd node; with an input that requires grad it goes
+    through ``WKV6``, whose backward launches ``wkv6_backward`` once."""
+    from repro_torch.kernels import rwkv6
+    dev = _cuda()
+    g = torch.Generator(device=dev).manual_seed(7)
+    n = lambda *s: torch.randn(s, generator=g, device=dev)
+    r, k, v = (n(2, 40, 2, 64) for _ in range(3))
+    w = torch.sigmoid(n(2, 40, 2, 64))
+    u, s0 = n(2, 64) * 0.3, n(2, 2, 64, 64) * 0.1
+    _build.reset_launches()
+    y, _ = rwkv6.wkv6(r, k, v, w, u, s0)
+    assert y.grad_fn is None
+    r.requires_grad_()
+    with torch.no_grad():
+        assert rwkv6.wkv6(r, k, v, w, u, s0)[0].grad_fn is None
+    y2, _ = rwkv6.wkv6(r, k, v, w, u, s0)
+    assert type(y2.grad_fn).__name__ == "WKV6Backward"
+    assert torch.equal(y2.detach(), y)
+    torch.autograd.grad(y2.sum(), r)
+    counts = _build.launch_counts()
+    assert counts["wkv6"] == 3 and counts["wkv6_backward"] == 1

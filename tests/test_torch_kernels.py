@@ -68,10 +68,16 @@ def test_cpu_tensors_take_the_plain_versions_and_launch_nothing():
     args = _wkv6_inputs(2, 5, 2, 16, 12)
     for a, b in zip(rwkv6.wkv6(*args), ref.wkv6_naive(*args)):
         assert torch.equal(a, b)
+    leaves = [a.clone().requires_grad_() for a in args[:5]]
+    dy = torch.ones_like(args[0])
+    got = torch.autograd.grad(rwkv6.WKV6.apply(*leaves, args[5])[0], leaves,
+                              dy)
+    for a, b in zip(got, ref.wkv6_backward_naive(*args, dy)):
+        assert torch.equal(a, b)
     assert _build.launch_counts() == before
     assert set(before) == {"weighted_sum", "quantize", "dequantize", "wsum_q8",
                            "add_q8_delta", "gram_q8", "gram_and_norms",
-                           "wkv6"}
+                           "wkv6", "wkv6_backward"}
 
 
 @pytest.mark.parametrize("call", [
