@@ -216,9 +216,10 @@ LM_MEM_EVENTS = 4_000_000      # allocator events kept for the peak's replay
 # autograd saves in one forward of the loss, through WKV6, float32 params,
 # parameters excluded: 0.558 GB outside the layers and 0.321 GB a layer,
 # from the difference between 1 and 2 layers, times 24), and the
-# wkv6_backward workspace of a layer, 0.15 GB (checkpoints and a chunk's
-# states). Its peak is the FedAvg moment, 38 P, all the same
-LM_STEP_GB = {LM_ARCH: 12.0, "rwkv6-1.6b": 8.4}
+# wkv6_backward scratch of a layer, 0.034 GB (each 32-token chunk's
+# incoming state and outgoing gradient, [8, 32, 4, 64, 64] f32 twice, and
+# du's partials). Its peak is the FedAvg moment, 38 P, all the same
+LM_STEP_GB = {LM_ARCH: 12.0, "rwkv6-1.6b": 8.31}
 LM_MEM_MARGIN = 0.05           # the peak may pass its reckoning by 5 %
 # rwkv6-1.6b's learning rate. Its full-width gradients at the reference's
 # init are ill-conditioned: at 24 layers in bf16 their size turns on the
@@ -1082,19 +1083,36 @@ WKV6_BWD_SHAPES = {
 }
 WKV6_BWD_REL = 1e-4            # of each gradient's max|.| in f32
 WKV6_BWD_NAMES = ("dr", "dk", "dv", "dw", "du", "dstate")
+# the token-serial wkv6_backward kernel that the chunked one replaced (ms;
+# chip_smoke.py on an NVIDIA H100 80GB HBM3, 700.00 W)
+WKV6_BWD_EARLIER_MS = {"train": 0.5249, "train-no-dstate": 0.5268,
+                       "long": 2.6037, "smoke": 0.1098, "decays": 0.1706}
+# gradients asked for alone or in part (dr, dk, dv, dw, du, dstate0): the
+# pass runs one role or none, the chunk kernel gets a null state or does
+# not run
+WKV6_BWD_NEEDS = {"dv": (2,), "dstate0": (5,), "du": (4,), "dr": (0,),
+                  "dk+dv+dstate0": (1, 2, 5)}
+# the kernels one wkv6_backward call launches (profile names)
+WKV6_BWD_KERNELS = ["wkv6_bwd_chunk_kernel", "wkv6_bwd_pass_kernel",
+                    "wkv6_du_kernel"]
 
 
 def check_wkv6_backward(shape: str, gen, iters: int) -> dict:
     """The ``wkv6_backward`` kernel against its plain reverse scan
-    (``ref.wkv6_backward_naive``) on the card, every one of the six
-    gradients: |d| <= WKV6_BWD_REL * max|g| in f32, BF16_ULP * max|g| for a
-    bf16 gradient (the two may round a float32 value to either side of a
-    bf16 boundary); one launch of the wrapper a call; a rerun gives the
-    same bits (du is summed over the batch in a fixed order). Times by
-    CUDA events, kernel and plain in turns, beside the bound: r, k, v, w,
-    dy, u and the states read, dr, dk, dv, dw, du and dstate0 written, over
-    the memory rate, or 10 hs^2 float32 operations a token and head, the
-    larger. No one PyTorch call computes it: library none."""
+    (``ref.wkv6_backward_naive``) and against its own chunked arithmetic
+    written out in PyTorch (``ref.wkv6_backward_chunks``) on the card,
+    every one of the six gradients: |d| <= WKV6_BWD_REL * max|g| in f32,
+    BF16_ULP * max|g| for a bf16 gradient (the two may round a float32
+    value to either side of a bf16 boundary); one launch of the wrapper a
+    call; a rerun gives the same bits (du is summed over batch and chunk in
+    a fixed order), and so does a call asking for a part of the gradients
+    (WKV6_BWD_NEEDS), which gives None for the rest. Times by CUDA events, kernel and plain in turns,
+    beside the bound: r, k, v, w, dy, u and the states read, dr, dk, dv,
+    dw, du and dstate0 written, over the memory rate, or 10 hs^2 float32
+    operations a token and head, the larger; and beside the same work at
+    the units the chunked design gives it (``bound_tc_ms``) and the
+    token-serial kernel's times (``earlier_ms``). No one PyTorch call
+    computes it: library none."""
     from repro_torch.kernels import ref, rwkv6
     B, T, H, hs, dt, given = WKV6_BWD_SHAPES[shape]
     r, k, v, w, u, s0 = wkv6_inputs(B, T, H, hs, gen)
@@ -1111,16 +1129,43 @@ def check_wkv6_backward(shape: str, gen, iters: int) -> dict:
     errs = wkv6_grad_errors(got, ref.wkv6_backward_naive(*args))
     if not all(e["ok"] for e in errs.values()):
         fail(f"wkv6_backward {shape}: {errs}")
+    errs_chunks = wkv6_grad_errors(got, ref.wkv6_backward_chunks(*args))
+    if not all(e["ok"] for e in errs_chunks.values()):
+        fail(f"wkv6_backward {shape} vs the chunked arithmetic: "
+             f"{errs_chunks}")
     again = rwkv6.backward(*args)
     if not all(torch.equal(a, b) for a, b in zip(got, again)):
         fail(f"wkv6_backward {shape}: a rerun gives other bits")
-    del got, again
+    for part, idx in WKV6_BWD_NEEDS.items():
+        sub = rwkv6.backward(*args, needs=tuple(i in idx for i in range(6)))
+        if not all((b is None) if i not in idx else torch.equal(a, b)
+                   for i, (a, b) in enumerate(zip(got, sub))):
+            fail(f"wkv6_backward {shape}: {part} alone is not the full "
+                 "call's bits, or another gradient came back")
+    del got, again, sub
     e = r.element_size()
     n = B * T * H * hs
     states = B * H * hs * hs * 4
     nbytes = (n * (4 * e + 4) + H * hs * 4 + states * (1 + given)
               + n * (3 * e + 4) + H * hs * 4 + states)
     b_ms, b_by = bound(nbytes, 10.0 * hs * hs * B * T * H)
+    # the same work on the units the chunked kernel gives it, a token and
+    # head (chunks of C = 32, two sub-chunks): on the tensor cores, as
+    # three TF32 products each (a third of their rate), the two passes'
+    # state steps, S_in dy, G_out v and KQ G_out (hs^2 multiply-adds each),
+    # A^T dY and dY V^T over their causal halves ((C + 1) hs / 2 each), the
+    # products across the sub-chunks (Fx, Hx, A's block: 3 C hs / 4); on
+    # the CUDA cores the scans and A's diagonal sub-chunks, the decay
+    # products and the sums of the terms ((3 C + 3) hs) and rowsum(G_out
+    # S_in) once a chunk (hs^2 / C)
+    C = 32
+    tc_ms = 2.0 * (5.0 * hs * hs + (C + 1) * hs + 0.75 * C * hs) \
+        * B * T * H / (TF32_FLOPS / 3) * 1e3
+    alu_ms = ((3.0 * C + 3) * hs + hs * hs / C) * B * T * H / F32_FLOPS \
+        * 1e3
+    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    b_tc_ms, b_tc_by = ((bytes_ms, "bytes") if bytes_ms >= tc_ms + alu_ms
+                        else (tc_ms + alu_ms, "operations"))
     ts = timed({"kernel": lambda: rwkv6.backward(*args),
                 "plain": lambda: ref.wkv6_backward_naive(*args)},
                {"kernel": iters, "plain": 1}, reps=3)
@@ -1129,16 +1174,55 @@ def check_wkv6_backward(shape: str, gen, iters: int) -> dict:
            "dstate_given": given,
            "max_abs_err": max(x["max_abs_err"] for x in errs.values()),
            "errors": errs,
+           "max_abs_err_vs_chunks": max(x["max_abs_err"]
+                                        for x in errs_chunks.values()),
            "check": f"|d| <= {WKV6_BWD_REL} max|g| (f32), {BF16_ULP} "
                     "max|g| (bf16) for each of dr, dk, dv, dw, du, dstate0 "
-                    "against ref.wkv6_backward_naive; reruns the same bits",
+                    "against ref.wkv6_backward_naive and "
+                    "ref.wkv6_backward_chunks; reruns the same bits; "
+                    f"{', '.join(WKV6_BWD_NEEDS)} alone the full call's "
+                    "bits, the others None",
            "kernel_ms": ts["kernel"], "plain_ms": ts["plain"],
            "library_ms": None, "bound_ms": b_ms, "bound_by": b_by,
+           "bound_tc_ms": b_tc_ms, "bound_tc_by": b_tc_by,
+           "earlier_ms": WKV6_BWD_EARLIER_MS[shape],
+           "earlier": "the token-serial kernel, NVIDIA H100 80GB HBM3, "
+                      "700.00 W, chip_smoke.py",
            "device": torch.cuda.get_device_name(0)}
     row["of_bound"] = row["bound_ms"] / row["kernel_ms"]
-    if shape in ("train", "smoke"):
-        row["_later"] = lambda: device_time(lambda: rwkv6.backward(*args))
+    row["of_bound_tc"] = row["bound_tc_ms"] / row["kernel_ms"]
+    if shape in ("train", "smoke", "long"):
+        row["_later"] = lambda: backward_profile(
+            f"wkv6_backward {shape}", lambda: rwkv6.backward(*args))
     return row
+
+
+def backward_profile(name: str, call) -> dict:
+    """Device time of one ``wkv6_backward`` wrapper call, kernel by kernel
+    (profiler); fails unless the call launches each of WKV6_BWD_KERNELS
+    once and nothing else. The chunk kernel starts before the pass ends
+    (programmatic dependent launch), so its device time includes that wait
+    and overlap, and ``device_us_per_call`` sums above the call's time by
+    CUDA events; so the call is profiled again with that launch off
+    (``by_kernel_no_pdl``: each kernel's own device time)."""
+    from repro_torch.kernels import rwkv6
+    extra = device_time(call)
+    rwkv6.set_backward_pdl(False)
+    try:
+        own = device_time(call)
+    finally:
+        rwkv6.set_backward_pdl(True)
+    for got in (extra, own):
+        per_call = {k: v["launches_per_call"]
+                    for k, v in got["by_kernel"].items()}
+        if per_call != {k: 1.0 for k in WKV6_BWD_KERNELS}:
+            fail(f"{name}: {got}, want one launch a call of each of "
+                 f"{WKV6_BWD_KERNELS}")
+    return {**extra, "device_us_per_call": extra["device_us_per_launch"]
+            * extra["launches_seen_per_call"],
+            "by_kernel_no_pdl": own["by_kernel"],
+            "device_us_per_call_no_pdl": own["device_us_per_launch"]
+            * own["launches_seen_per_call"]}
 
 
 def host_path(calls: int = 20000) -> dict:
@@ -2529,6 +2613,14 @@ def lm_train_phase(tree, arch: str) -> dict:
             "top_device_ops": [{"name": e.key[:80], "count": e.count,
                                 "ms": e.self_device_time_total / 1e3}
                                for e in top],
+            # the ported kernels' own device time in the profiled round
+            # (the chunk and du kernels' include their wait for the kernel
+            # ahead of them: programmatic dependent launch)
+            "ported_kernel_ops": [
+                {"name": k, "count": sum(e.count for e in kern if k in e.key),
+                 "ms": sum(e.self_device_time_total for e in kern
+                           if k in e.key) / 1e3}
+                for k in ("wkv6_kernel", *WKV6_BWD_KERNELS)] if rwkv else [],
             "eval_loss_before": pre, "eval_loss_after": post,
             "ledger_height": orch.ledger.height,
             "verify": orch.ledger.verify(),

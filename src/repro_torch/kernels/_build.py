@@ -26,7 +26,7 @@ from typing import Dict, Optional, Sequence, Tuple
 CSRC = Path(__file__).resolve().parent / "csrc"
 SOURCES = ("wsum.cu", "quant.cu", "q8agg.cu", "multikrum.cu", "wkv6.cu",
            "wkv6_bwd.cu")
-HEADERS = ("gram.cuh", "stream.cuh")
+HEADERS = ("gram.cuh", "stream.cuh", "wkv6.cuh")
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
 # no --use_fast_math: it turns x / scale into an approximate division, and
 # quantize must stay bit-exact against the reference

@@ -136,6 +136,49 @@ def wkv6_naive(r, k, v, w, u, state):
     return torch.stack(ys, dim=1).to(r.dtype), S
 
 
+def _subchunk_a(R, K, W, u, sub: int):
+    """A chunk's A[..., t, s] (the weight of v_s in y_t: zero above the
+    diagonal, the bonus on it) as ``wkv6_subchunks`` forms it, with the
+    sub-chunk products it is made of: rp, ks and each sub-chunk's W_c.
+    R, K, W: [..., C, hs] f32; u: broadcasts against R[..., 0, :]."""
+    C = R.shape[-2]
+    nsub = C // sub
+    rp, ks = torch.empty_like(R), torch.empty_like(K)
+    Ws = []
+    for c in range(nsub):
+        P = torch.ones_like(R[..., 0, :])
+        for t in range(c * sub, (c + 1) * sub):
+            rp[..., t, :] = R[..., t, :] * P
+            P = P * W[..., t, :]
+        Ws.append(P)
+        Q = torch.ones_like(K[..., 0, :])
+        for s in reversed(range(c * sub, (c + 1) * sub)):
+            ks[..., s, :] = K[..., s, :] * Q
+            Q = Q * W[..., s, :]
+    A = R.new_zeros(*R.shape[:-1], C)
+    for a in range(nsub):
+        ta = slice(a * sub, (a + 1) * sub)
+        for b in range(a):
+            mid = torch.ones_like(Ws[0])
+            for c in range(b + 1, a):
+                mid = mid * Ws[c]
+            A[..., ta, b * sub:(b + 1) * sub] = torch.einsum(
+                "...ti,...si->...ts", rp[..., ta, :],
+                ks[..., b * sub:(b + 1) * sub, :] * mid[..., None, :])
+        # the diagonal sub-chunk: offsets d = t - s, r_t carried back
+        rP = R[..., ta, :].clone()
+        Ka, Wa = K[..., ta, :], W[..., ta, :]
+        for d in range(1, sub):
+            A[..., a * sub + d:(a + 1) * sub,
+              a * sub:(a + 1) * sub - d].diagonal(dim1=-2, dim2=-1)[:] = \
+                torch.einsum("...ti,...ti->...t", rP[..., d:, :],
+                             Ka[..., :-d, :])
+            rP[..., d:, :] = rP[..., d:, :] * Wa[..., :sub - d, :]
+        A[..., ta, ta].diagonal(dim1=-2, dim2=-1)[:] = torch.einsum(
+            "...ti,...ti->...t", R[..., ta, :] * u[..., None, :], Ka)
+    return A, rp, ks, Ws
+
+
 def wkv6_subchunks(r, k, v, w, u, state, chunk: int = 32, sub: int = 16):
     """The ``wkv6`` kernel's chunked arithmetic, written out in float32 for
     the tests (a yardstick of the algorithm, not a path of the port; the
@@ -172,38 +215,7 @@ def wkv6_subchunks(r, k, v, w, u, state, chunk: int = 32, sub: int = 16):
     ys = []
     for c0 in range(0, T + pad, C):
         R, K, V, W = (a[:, :, c0:c0 + C] for a in (rf, kf, vf, wf))
-        rp, ks = torch.empty_like(R), torch.empty_like(K)
-        Ws = []
-        for c in range(nsub):
-            P = torch.ones_like(R[:, :, 0])
-            for t in range(c * sub, (c + 1) * sub):
-                rp[:, :, t] = R[:, :, t] * P
-                P = P * W[:, :, t]
-            Ws.append(P)
-            Q = torch.ones_like(K[:, :, 0])
-            for s in reversed(range(c * sub, (c + 1) * sub)):
-                ks[:, :, s] = K[:, :, s] * Q
-                Q = Q * W[:, :, s]
-        A = torch.zeros(B, H, C, C, device=r.device)
-        for a in range(nsub):
-            ta = slice(a * sub, (a + 1) * sub)
-            for b in range(a):
-                mid = torch.ones_like(Ws[0])
-                for c in range(b + 1, a):
-                    mid = mid * Ws[c]
-                A[:, :, ta, b * sub:(b + 1) * sub] = torch.einsum(
-                    "bhti,bhsi->bhts", rp[:, :, ta],
-                    ks[:, :, b * sub:(b + 1) * sub] * mid[:, :, None])
-            # the diagonal sub-chunk: offsets d = t - s, r_t carried back
-            rP = R[:, :, ta].clone()
-            Ka, Wa = K[:, :, ta], W[:, :, ta]
-            for d in range(1, sub):
-                A[:, :, a * sub + d:(a + 1) * sub,
-                  a * sub:(a + 1) * sub - d].diagonal(dim1=2, dim2=3)[:] = \
-                    torch.einsum("bhti,bhti->bht", rP[:, :, d:], Ka[:, :, :-d])
-                rP[:, :, d:] = rP[:, :, d:] * Wa[:, :, :sub - d]
-            A[:, :, ta, ta].diagonal(dim1=2, dim2=3)[:] = torch.einsum(
-                "bhti,bhti->bht", R[:, :, ta] * uf[:, :, None], Ka)
+        A, rp, ks, Ws = _subchunk_a(R, K, W, uf, sub)
         rq, kq = rp.clone(), ks.clone()
         before = torch.ones_like(Ws[0])
         for c in range(nsub):
@@ -263,3 +275,167 @@ def wkv6_backward_naive(r, k, v, w, u, state, dy, dstate=None):
         G = G * wt[..., None] + torch.einsum("bhk,bhv->bhkv", rt, dyt)
     return (dr.to(r.dtype), dk.to(k.dtype), dv.to(v.dtype), dw.to(w.dtype),
             du.to(u.dtype), G.to(state.dtype))
+
+
+def wkv6_backward_chunks(r, k, v, w, u, state, dy, dstate=None,
+                         chunk: int = 32, sub: int = 16):
+    """The ``wkv6_backward`` kernel's chunked arithmetic, written out in
+    float32 (a yardstick of the algorithm, as ``wkv6_subchunks`` is of the
+    forward; not a path of the port). Same arguments and results as
+    ``wkv6_backward_naive``; a chunk is two sub-chunks (chunk = 2 sub).
+
+    Inside a chunk with incoming state S_in and outgoing gradient G_out,
+    every per-token state and gradient is a low-rank update of those two,
+    so none is formed. With (channelwise products of w, every factor in
+    [0, 1]; no log, exp or division) P_t = prod w[< t], Q_t = prod w[> t],
+    D(a, c) = prod w[a < . < c] and M[t, s] = dy_t . v_s::
+
+      dr_t = P_t (S_in dy_t) + sum_{s<t} D(s,t) k_s M[t,s] + u k_t M[t,t]
+      dk_t = Q_t (G_out v_t) + sum_{t'>t} D(t,t') r_t' M[t',t]
+             + u r_t M[t,t]
+      dv   = A^T dY + KQ G_out              (A as ``wkv6_subchunks``)
+      dw_t = P_t Q_t rowsum(G_out * S_in) + Q_t Z_t + P_t Z'_t + T4_t
+      du  += r_t k_t M[t,t]
+
+    with Z_t = sum_{s<t} D(s,t) k_s (G_out v_s), Z'_t = sum_{t'>t} D(t,t')
+    r_t' (S_in dy_t') and T4_t = sum_{s<t<t'} D(s,t) D(t,t') r_t' k_s
+    M[t',s]. A pair across the two sub-chunks factors at their boundary:
+    D(s, t') = ksf_s rpf_t' for s in the first and t' in the second
+    (ksf_s = prod w[s < . <= its end], rpf_t' = prod w[its start <= . <
+    t']; KS0 = k ksf and RP1 = r rpf are ``wkv6_subchunks``' ks and rp),
+    so those terms come from two products, Fx = M10 KS0 and Hx = M10^T
+    RP1 (M10 = M[second, first]): dr_t += rpf_t Fx_t, dk_s += ksf_s Hx_s,
+    and T4 gains ksf_t Zh_t (first sub-chunk; Zh_{t+1} = w_t Zh_t + k_t
+    Hx_t) and rpf_t Zf_t (second; Zf_{t-1} = w_t Zf_t + r_t Fx_t). Pairs
+    inside a sub-chunk
+    are channelwise scans: F_{t+1}[x] = w_t F_t[x] + k_t M[x, t] gives
+    dr's F_t[t], H_{t-1}[x] = w_t H_t[x] + r_t M[t, x] gives dk's H_t[t],
+    and T4 inside a sub-chunk is a Horner sum over the shorter side (from
+    H_t over s < t in its first half, from F_t over t' > t in its second).
+    The chunk-boundary states come from two serial passes: S_in by S <-
+    diag(W) S + KQ^T V, G_out backwards from dstate (or zeros) by G <-
+    diag(W) G + RQ^T dY (RQ_t = r_t P_t, KQ_t = k_t Q_t, W = prod over the
+    chunk); the last G is dstate0. A tail chunk is padded with r = k = v
+    = dy = 0 and w = 1, which changes nothing."""
+    assert chunk == 2 * sub, "a chunk is two sub-chunks"
+    B, T, H, hs = r.shape
+    C, L = chunk, sub
+    pad = (-T) % C
+    n = (T + pad) // C
+
+    def chunks(a, fill):   # [B, T, H, hs] -> [B, H, n, C, hs] f32
+        a = a.to(torch.float32)
+        if pad:
+            a = torch.cat([a, torch.full((B, pad, H, hs), fill,
+                                         device=r.device)], 1)
+        return a.reshape(B, n, C, H, hs).permute(0, 3, 1, 2, 4)
+
+    R, K, V, DY = (chunks(a, 0.0) for a in (r, k, v, dy))
+    W = chunks(w, 1.0)
+    uf = u.to(torch.float32)[None, :, None, :]     # [1, H, 1, hs]
+    at = lambda a, t: a[..., t, :]
+    # products of w from the chunk's ends (P, Q) and from the boundary
+    # between its sub-chunks (ksf over the first, rpf over the second)
+    P, Q = torch.empty_like(W), torch.empty_like(W)
+    p = torch.ones_like(W[..., 0, :])
+    for t in range(C):
+        P[..., t, :] = p
+        p = p * at(W, t)
+    Wc = p                                          # [B, H, n, hs]
+    q = torch.ones_like(p)
+    for t in reversed(range(C)):
+        Q[..., t, :] = q
+        q = q * at(W, t)
+    ksf, rpf = torch.empty_like(W[..., :L, :]), torch.empty_like(W[..., :L, :])
+    f = torch.ones_like(p)
+    for t in reversed(range(L)):
+        ksf[..., t, :] = f
+        f = f * at(W, t)
+    f = torch.ones_like(p)
+    for t in range(L):
+        rpf[..., t, :] = f
+        f = f * at(W, L + t)
+    KQ, RQ = K * Q, R * P
+
+    # the two serial passes: each chunk's incoming state and outgoing
+    # gradient
+    S = state.to(torch.float32)
+    s_in = []
+    for c in range(n):
+        s_in.append(S)
+        S = Wc[:, :, c, :, None] * S + torch.einsum(
+            "bhti,bhtj->bhij", KQ[:, :, c], V[:, :, c])
+    G = torch.zeros_like(S) if dstate is None else dstate.to(torch.float32)
+    g_out = [None] * n
+    for c in reversed(range(n)):
+        g_out[c] = G
+        G = Wc[:, :, c, :, None] * G + torch.einsum(
+            "bhti,bhtj->bhij", RQ[:, :, c], DY[:, :, c])
+    Sin, Gout = torch.stack(s_in, 2), torch.stack(g_out, 2)
+
+    # the chunk's products
+    Y = torch.einsum("...tj,...ij->...ti", DY, Sin)      # S_in dy_t
+    X = torch.einsum("...tj,...ij->...ti", V, Gout)      # G_out v_t
+    M = torch.einsum("...tj,...sj->...ts", DY, V)
+    A, rp, ks, _ = _subchunk_a(R, K, W, uf, L)
+    dv = torch.einsum("...ts,...tj->...sj", A, DY) + torch.einsum(
+        "...si,...ij->...sj", KQ, Gout)
+    R1 = torch.sum(Gout * Sin, dim=-1)                   # [B, H, n, hs]
+    M10 = M[..., L:, :L]
+    Fx = torch.einsum("...ts,...si->...ti", M10, ks[..., :L, :])
+    Hx = torch.einsum("...ts,...ti->...si", M10, rp[..., L:, :])
+    Md = torch.diagonal(M, dim1=-2, dim2=-1)[..., None]  # dy_t . v_t
+
+    # the scans inside each sub-chunk, both at once: [..., 2, L, hs]
+    two = lambda a: a.reshape(*a.shape[:-2], 2, L, hs)
+    R2, K2, W2 = two(R), two(K), two(W)
+    Mb = torch.stack([M[..., :L, :L], M[..., L:, L:]], -3)   # [.., 2, L, L]
+    dr, dk, T4 = (torch.zeros_like(R2) for _ in range(3))
+    F = torch.zeros_like(R2)         # F[..., a, x, :]: F_t[x]
+    for t in range(L):
+        dr[..., t, :] = at(F, t)
+        if t >= L // 2:
+            acc = torch.zeros_like(at(F, t))
+            for x in reversed(range(t + 1, L)):
+                acc = at(W2, x) * acc + at(R2, x) * at(F, x)
+            T4[..., t, :] = acc
+        F[..., t + 1:, :] = at(W2, t)[..., None, :] * F[..., t + 1:, :] \
+            + at(K2, t)[..., None, :] * Mb[..., t + 1:, t, None]
+    Hs = torch.zeros_like(R2)        # Hs[..., a, x, :]: H_t[x]
+    for t in reversed(range(L)):
+        dk[..., t, :] = at(Hs, t)
+        if t < L // 2:
+            acc = torch.zeros_like(at(Hs, t))
+            for x in range(t):
+                acc = at(W2, x) * acc + at(K2, x) * at(Hs, x)
+            T4[..., t, :] = acc
+        Hs[..., :t, :] = at(W2, t)[..., None, :] * Hs[..., :t, :] \
+            + at(R2, t)[..., None, :] * Mb[..., t, :t, None]
+    flat = lambda a: a.reshape(*a.shape[:-3], C, hs)
+    dr, dk, T4 = flat(dr), flat(dk), flat(T4)
+    dr[..., L:, :] += rpf * Fx
+    dk[..., :L, :] += ksf * Hx
+    dr = P * Y + dr + uf[..., None, :] * K * Md
+    dk = Q * X + dk + uf[..., None, :] * R * Md
+    dwa, dwb = torch.empty_like(R), torch.empty_like(R)
+    z, zc = torch.zeros_like(at(R, 0)), torch.zeros_like(at(R, 0))
+    for t in range(C):
+        dwa[..., t, :] = at(P, t) * at(Q, t) * R1 + at(Q, t) * z
+        if t < L:
+            dwa[..., t, :] += at(ksf, t) * zc
+            zc = at(W, t) * zc + at(K, t) * at(Hx, t)
+        z = at(W, t) * z + at(K, t) * at(X, t)
+    z, zc = torch.zeros_like(z), torch.zeros_like(z)
+    for t in reversed(range(C)):
+        dwb[..., t, :] = at(P, t) * z
+        if t >= L:
+            dwb[..., t, :] += at(rpf, t - L) * zc
+            zc = at(W, t) * zc + at(R, t) * at(Fx, t - L)
+        z = at(W, t) * z + at(R, t) * at(Y, t)
+    dw = (dwa + dwb) + T4
+    du = torch.sum(R * K * Md, dim=(0, 2, 3))              # [H, hs]
+
+    back = lambda a, dt: a.permute(0, 2, 3, 1, 4).reshape(
+        B, n * C, H, hs)[:, :T].to(dt)
+    return (back(dr, r.dtype), back(dk, k.dtype), back(dv, v.dtype),
+            back(dw, w.dtype), du.to(u.dtype), G.to(state.dtype))

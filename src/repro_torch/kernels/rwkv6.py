@@ -20,9 +20,12 @@ sub-chunk boundary (no log, exp or division). The plain version is
 
 On the card, ``wkv6`` goes through ``WKV6``, a ``torch.autograd.Function``
 whose backward is a second kernel, ``csrc/wkv6_bwd.cu`` (no Pallas
-counterpart: the reference differentiates its jnp forms). It walks the
-tokens back with the states recomputed forward from checkpoints every 32
-tokens, never divided out of ``w``; its plain version is
+counterpart: the reference differentiates its jnp forms). It is chunked
+like the forward: two serial passes write each 32-token chunk's incoming
+state and outgoing gradient, then a block a chunk forms every gradient
+from those two on the tensor cores and by channelwise scans of products
+of ``w`` (never divided out of it); ``ref.wkv6_backward_chunks`` is the
+same arithmetic in PyTorch, and the plain version is
 ``ref.wkv6_backward_naive``. It serves ``torch.autograd.grad`` and the
 ``torch.func`` transforms alike; a call that takes no gradient skips it
 and launches the forward kernel directly. On the CPU, ``wkv6`` is the plain scan,
@@ -46,8 +49,8 @@ _KERNEL = _build.register(
 _BACKWARD = _build.register(
     "wkv6_backward", "repro_wkv6_backward",
     [ctypes.c_void_p] * 17 + [ctypes.c_int] * 5 + [ctypes.c_int64] * 9
-    + [ctypes.c_void_p])
-CHECKPOINT = 32    # tokens between the backward's stored states
+    + [ctypes.c_void_p], packed=True)
+CHUNK = 32    # tokens a chunk of the backward (its states are kept a chunk)
 
 
 def _rows_strided(t):
@@ -121,13 +124,16 @@ def backward(r, k, v, w, u, state, dy, dstate=None,
     """The backward kernel on checked CUDA tensors: (dr, dk, dv, dw, du,
     dstate0), each None where ``needs`` (the six inputs' flags) says so.
     ``dy`` of any strides (an expanded or sliced cotangent is made what the
-    kernel reads); ``dstate`` None when the final state is discarded. The
-    checkpoints and the chunk's states are scratch of this call: [B, H,
-    ceil(T / 32), hs, hs] and [B, H, 32, hs, hs] f32."""
+    kernel reads); ``dstate`` None when the final state is discarded.
+    Scratch of this call: each chunk's incoming state (for dr and dw) and
+    outgoing gradient (for dk, dv, dw and dstate0), [B, H, ceil(T / 32),
+    hs, hs] f32 each, and du's partials, [B, ceil(T / 32), H, hs]."""
     B, T, H, hs = r.shape
     dev = r.device
     r, k, v, w = kernel_operands(r, k, v, w)
     dy = _rows_strided(dy.to(r.dtype))
+    if not _vec_aligned(dy):
+        dy = _fresh(dy)
     u = u.to(torch.float32).contiguous()
     s0 = state.to(torch.float32).contiguous()
     if dstate is not None:
@@ -135,24 +141,35 @@ def backward(r, k, v, w, u, state, dy, dstate=None,
     out = lambda dt: torch.empty((B, T, H, hs), dtype=dt, device=dev)
     dr, dk, dv = (out(r.dtype) if n else None for n in needs[:3])
     dw = out(torch.float32) if needs[3] else None
-    du = du_part = None
-    if needs[4]:
-        du = torch.empty((H, hs), dtype=torch.float32, device=dev)
-        du_part = torch.empty((B, H, hs), dtype=torch.float32, device=dev)
+    du = torch.empty((H, hs), dtype=torch.float32, device=dev) \
+        if needs[4] else None
     ds0 = torch.empty_like(s0) if needs[5] else None
-    ckpt = chunk = None
-    if any(needs[i] for i in (0, 1, 3, 4, 5)):
-        nck = -(-T // CHECKPOINT)
-        ckpt = torch.empty((B, H, nck, hs, hs), dtype=torch.float32,
-                           device=dev)
-        chunk = torch.empty((B, H, CHECKPOINT, hs, hs), dtype=torch.float32,
-                            device=dev)
-    _BACKWARD(*(_ptr(a) for a in (r, k, v, w, u, s0, dy, dstate, dr, dk, dv,
-                                  dw, du, du_part, ds0, ckpt, chunk)),
-              B, H, T, hs, int(r.dtype == torch.bfloat16),
-              *r.stride()[:3], *w.stride()[:3], *dy.stride()[:3],
-              _build.stream_of(r))
+    # each chunk's incoming state (for dr, dw) and outgoing gradient (for
+    # dk, dv, dw, dstate0), and du's partials
+    nck = -(-T // CHUNK)
+    states = lambda: torch.empty((B, H, nck, hs, hs), dtype=torch.float32,
+                                 device=dev)
+    s_in = states() if needs[0] or needs[3] else None
+    g_out = states() if needs[1] or needs[2] or needs[3] or needs[5] \
+        else None
+    du_part = torch.empty((B, nck, H, hs), dtype=torch.float32,
+                          device=dev) if needs[4] else None
+    _BACKWARD(*(0 if a is None else a.data_ptr() for a in (
+        r, k, v, w, u, s0, dy, dstate, dr, dk, dv, dw, du, du_part, ds0,
+        s_in, g_out)), B, H, T, hs, int(r.dtype == torch.bfloat16),
+        *r.stride()[:3], *w.stride()[:3], *dy.stride()[:3],
+        _build.stream_of(r))
     return dr, dk, dv, dw, du, ds0
+
+
+def set_backward_pdl(on: bool) -> bool:
+    """Whether the backward's chunk kernel starts before its pass ends
+    (programmatic dependent launch; on by default), for later calls of
+    this process; returns the setting before. Off, each kernel's profiled
+    device time is its own (``trace_kernels``)."""
+    fn = _build.library().repro_wkv6_backward_pdl
+    fn.argtypes, fn.restype = [ctypes.c_int], ctypes.c_int
+    return bool(fn(int(on)))
 
 
 class WKV6(torch.autograd.Function):

@@ -1,19 +1,34 @@
-"""Trace ``wkv6`` and ``gram_q8`` on the card: resources, occupancy, scaling.
+"""Trace ``wkv6``, ``wkv6_backward`` and ``gram_q8`` on the card:
+resources, occupancy, scaling.
 
   python -m repro_torch.kernels.trace_kernels        (from the repo root)
 
-No ``ncu`` on the machine, so three reckonings stand in for it, one JSON
+No ``ncu`` on the machine, so these reckonings stand in for it, one JSON
 line each:
 
 - ``resources``: each kernel's registers, static shared memory and spills,
   read from the built library by ``cuobjdump -res-usage``, and from them
   and the threads a block the blocks an SM can hold by registers and by
-  threads (dynamic shared memory is not read here: ``wkv6``'s caps it at
-  one block an SM, which ``wkv6-scaling`` shows as a step at 132 blocks);
+  threads; for the three ``wkv6_backward`` kernels also their dynamic
+  shared memory and the blocks an SM the occupancy calculator gives with
+  it (``wkv6``'s dynamic shared memory caps it at one block an SM, which
+  ``wkv6-scaling`` shows as a step at 132 blocks);
 - ``wkv6-scaling``: device time a launch (``torch.profiler``) as the
   (batch, head) blocks grow at a fixed T, and as T grows at the serving
   batch: a kernel that is latency-bound in each block keeps its time while
   blocks fill idle SMs, and takes time in proportion to T;
+- ``wkv6_backward-scaling``: time a call (CUDA events) and device time by
+  kernel as B x H grows at T 128 (the training shape's T), and as T grows
+  at B 8: the pass kernel walks the chunks in series (time in proportion
+  to T, flat in B x H while its B x H x 2 blocks fit the card at once, or
+  in proportion to the bytes it moves where the memory is the limit), the
+  chunk kernel's B x H x T / 32 blocks are all independent (time in
+  proportion to the blocks once they fill the card's 132 SMs); B 4, T
+  1000 (the long prefill's shape) last. The chunk kernel starts before
+  the pass ends (programmatic dependent launch), so with it on its device
+  time includes waiting for the pass and the kernels' times overlap; each
+  line also gives the call with it off, in turns with on (``_no_pdl``):
+  there each kernel's device time is its own;
 - ``gram_q8-scaling``: device time a launch at M = 1, 3, 8 and N = 2^28
   and at the main shape (M 3, N 131,072): time that grows with the
   M(M+1)/2 row pairs rather than with the M*N bytes is shared-memory or
@@ -37,6 +52,10 @@ from repro_torch.kernels import _build, q8agg, ref, rwkv6
 SMS, SM_REGS, SM_WARPS, SM_BLOCKS = 132, 65_536, 64, 32
 LARGE_N = 1 << 28
 THREADS = {"wkv6_kernelILi64E": 256, "wkv6_kernelILi16E": 64,
+           "wkv6_bwd_pass_kernelILi64E": 128,
+           "wkv6_bwd_pass_kernelILi16E": 32,
+           "wkv6_bwd_chunk_kernelILi64E": 256,
+           "wkv6_bwd_chunk_kernelILi16E": 64,
            "gram_q8_kernel": 256}   # a block, as the wrappers launch them
 
 
@@ -98,6 +117,91 @@ def wkv6_inputs(B, T, H, hs, gen):
     return r, k, v, w, u, n(B, H, hs, hs)
 
 
+def backward_shared_memory() -> dict:
+    """mangled-name key -> the dynamic shared memory of the backward's pass
+    and chunk kernels and the blocks an SM the occupancy calculator gives
+    (``repro_wkv6_backward_occupancy``)."""
+    import ctypes
+    fn = _build.library().repro_wkv6_backward_occupancy
+    fn.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    out = {}
+    for hs in rwkv6.HEAD_SIZES:
+        for bf16, ty in ((0, "fEE"), (1, "13__nv_bfloat16EE")):
+            got = (ctypes.c_int * 4)()
+            if fn(hs, bf16, got) != 0:
+                raise SystemExit(f"trace_kernels: occupancy query failed "
+                                 f"at hs {hs}")
+            for kind, (nbytes, blocks) in (("pass", got[0:2]),
+                                           ("chunk", got[2:4])):
+                out[f"wkv6_bwd_{kind}_kernelILi{hs}E{ty}"] = {
+                    "dynamic_shared": nbytes,
+                    "blocks_per_sm_with_shared": blocks}
+    return out
+
+
+def event_us(call, calls: int = 20) -> float:
+    """Time a call by CUDA events over ``calls`` calls."""
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    for _ in range(calls):
+        call()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / calls * 1e3
+
+
+def backward_scaling(gen, dev) -> None:
+    """``wkv6_backward-scaling`` lines: time a call (CUDA events, the
+    median of 3 rounds, programmatic dependent launch on and off in turns)
+    and device time by kernel (on and off) at H 32, hs 64, bf16, a final
+    state's gradient given, as B grows at T 128 and as T grows at B 8;
+    each checked against the plain reverse scan first (dw, which every
+    term of the chunked form reaches, within 1e-4 of its max|.|)."""
+    for B, T in [(1, 128), (2, 128), (4, 128), (8, 128), (16, 128),
+                 (32, 128), (8, 32), (8, 256), (8, 512), (8, 1024),
+                 (4, 1000)]:
+        r, k, v, w, u, s0 = wkv6_inputs(B, T, 32, 64, gen)
+        dy = torch.randn((B, T, 32, 64), generator=gen,
+                         device="cuda").to(torch.bfloat16)
+        ds = torch.randn((B, 32, 64, 64), generator=gen, device="cuda")
+        args = (r, k, v, w, u, s0, dy, ds)
+        got = rwkv6.backward(*args)[3]
+        if B * T <= 2048:
+            want = ref.wkv6_backward_naive(*args)[3]
+            err = float((got - want).abs().max()) / float(want.abs().max())
+            if not err <= 1e-4:
+                raise SystemExit(f"trace_kernels: wkv6_backward B{B} T{T}: "
+                                 f"dw off by {err} of max|dw|")
+        call = lambda: rwkv6.backward(*args)
+        for _ in range(5):
+            call()
+        ev = {True: [], False: []}
+        for _ in range(3):
+            for on in (True, False):
+                rwkv6.set_backward_pdl(on)
+                ev[on].append(event_us(call))
+        us = {}
+        for on in (True, False):
+            rwkv6.set_backward_pdl(on)
+            us[on] = device_us(call, 20)
+        rwkv6.set_backward_pdl(True)
+        nck = -(-T // 32)
+        print(json.dumps({"phase": "wkv6_backward-scaling", "B": B, "T": T,
+                          "H": 32, "hs": 64, "dtype": "bfloat16",
+                          "pass_blocks": B * 32 * 2,
+                          "chunk_blocks": B * 32 * nck,
+                          "event_us_per_call": sorted(ev[True])[1],
+                          "event_us_per_call_no_pdl": sorted(ev[False])[1],
+                          "device_us": us[True],
+                          "device_us_no_pdl": us[False],
+                          "device": dev}), flush=True)
+        del r, k, v, w, u, s0, dy, ds, args, got
+    torch.cuda.empty_cache()
+
+
 def main(argv=None) -> int:
     if argv:
         print(f"trace_kernels: takes no arguments, got {argv}",
@@ -113,11 +217,14 @@ def main(argv=None) -> int:
     gen = torch.Generator(device="cuda").manual_seed(0)
     dev = torch.cuda.get_device_name(0)
 
+    dyn = backward_shared_memory()
     for mangled, r in sorted(resources(_build.build()).items()):
         threads = next((t for k, t in THREADS.items() if k in mangled), None)
         if threads is not None:
             print(json.dumps({"phase": "resources", "kernel": mangled, **r,
                               **occupancy(r["regs"], threads),
+                              **next((v for k, v in dyn.items()
+                                      if k in mangled), {}),
                               "device": dev}), flush=True)
 
     # latency against parallelism: T fixed, (batch, head) blocks grow
@@ -138,6 +245,7 @@ def main(argv=None) -> int:
                           "device": dev}), flush=True)
         del a, y, s
     torch.cuda.empty_cache()
+    backward_scaling(gen, dev)
 
     for M, N in [(3, 131_072), (1, LARGE_N), (3, LARGE_N), (8, LARGE_N)]:
         q = torch.randint(-127, 128, (M, N), generator=gen, device="cuda",

@@ -237,11 +237,13 @@ def test_gpu_rwkv6_client_step_matches_the_cpu():
 @pytest.mark.gpu
 @pytest.mark.parametrize("B,T,H,hs,dtype", [
     (2, 70, 4, 16, torch.float32), (2, 70, 4, 16, torch.bfloat16),
-    (3, 100, 2, 64, torch.bfloat16), (1, 1, 2, 64, torch.float32)])
+    (3, 100, 2, 64, torch.bfloat16), (1, 1, 2, 64, torch.float32),
+    (2, 1, 3, 16, torch.float32), (3, 45, 2, 16, torch.bfloat16)])
 def test_gpu_wkv6_backward_matches_its_plain_version(B, T, H, hs, dtype):
-    """The ``wkv6_backward`` kernel against ``ref.wkv6_backward_naive`` on
-    the card, ragged T, with a final state's gradient: each gradient within
-    1e-4 of its max|.| in f32, one bf16 ulp (2^-7) of it in bf16."""
+    """The ``wkv6_backward`` kernel against ``ref.wkv6_backward_naive`` and
+    its chunked arithmetic (``ref.wkv6_backward_chunks``) on the card,
+    ragged T (T = 1 included), with a final state's gradient: each gradient
+    within 1e-4 of its max|.| in f32, one bf16 ulp (2^-7) of it in bf16."""
     from repro_torch.kernels import ref, rwkv6
     dev = _cuda()
     g = torch.Generator(device=dev).manual_seed(B * T + hs)
@@ -250,13 +252,40 @@ def test_gpu_wkv6_backward_matches_its_plain_version(B, T, H, hs, dtype):
     w = torch.sigmoid(2.0 * n(B, T, H, hs))
     u, s0, ds = n(H, hs) * 0.3, n(B, H, hs, hs) * 0.1, n(B, H, hs, hs)
     got = rwkv6.backward(r, k, v, w, u, s0, dy, ds)
-    want = ref.wkv6_backward_naive(r, k, v, w, u, s0, dy, ds)
-    for name, a, b in zip(("dr", "dk", "dv", "dw", "du", "dstate"),
-                          got, want):
-        assert a.dtype == b.dtype, name
-        tol = (2.0 ** -7 if a.dtype == torch.bfloat16 else 1e-4) * \
-            float(b.float().abs().max())
-        assert float((a.float() - b.float()).abs().max()) <= tol, name
+    for plain in (ref.wkv6_backward_naive, ref.wkv6_backward_chunks):
+        want = plain(r, k, v, w, u, s0, dy, ds)
+        for name, a, b in zip(("dr", "dk", "dv", "dw", "du", "dstate"),
+                              got, want):
+            assert a.dtype == b.dtype, name
+            tol = (2.0 ** -7 if a.dtype == torch.bfloat16 else 1e-4) * \
+                float(b.float().abs().max())
+            assert float((a.float() - b.float()).abs().max()) <= tol, name
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("hs,dtype", [(16, torch.bfloat16),
+                                      (64, torch.float32)])
+@pytest.mark.parametrize("wanted", [(2,), (5,), (4,), (0,), (1, 2, 5)],
+                         ids=["dv", "dstate0", "du", "dr", "dk+dv+dstate0"])
+def test_gpu_wkv6_backward_gives_what_it_is_asked_for(hs, dtype, wanted):
+    """A call asking for a part of the gradients (the pass on one role or
+    none, the chunk kernel with a null state or not at all) gives the full
+    call's bits for each of them and None for the rest."""
+    from repro_torch.kernels import rwkv6
+    dev = _cuda()
+    g = torch.Generator(device=dev).manual_seed(hs)
+    n = lambda *s: torch.randn(s, generator=g, device=dev)
+    r, k, v, dy = (n(2, 45, 3, hs).to(dtype) for _ in range(4))
+    w = torch.sigmoid(2.0 * n(2, 45, 3, hs))
+    u, s0, ds = n(3, hs) * 0.3, n(2, 3, hs, hs) * 0.1, n(2, 3, hs, hs)
+    args = (r, k, v, w, u, s0, dy, ds)
+    full = rwkv6.backward(*args)
+    part = rwkv6.backward(*args, needs=tuple(i in wanted for i in range(6)))
+    for i, (a, b) in enumerate(zip(full, part)):
+        if i in wanted:
+            assert torch.equal(a, b), i
+        else:
+            assert b is None, i
 
 
 @pytest.mark.gpu

@@ -14,6 +14,11 @@ The chunked form clips w at 1e-6 before its log and divides by cumulative
 decays, so it is a yardstick only for decays that stay well inside float32
 over a 32-token chunk (w in [0.2, 1]) and T a multiple of 32; at w = 0,
 w = 1 and w = 1e-30 the token scan is the yardstick.
+
+The kernel's own chunked arithmetic (``ref.wkv6_backward_chunks``: chunk
+states from two serial passes, the per-chunk products and the decay scans)
+is held to the plain reverse scan and to the reference's ``jax.vjp`` at the
+same REL, ragged T, w = 0, 1 and 1e-30 and bf16 operands included.
 """
 import jax
 import jax.numpy as jnp
@@ -57,6 +62,28 @@ def _plain(args, dy, dstate, dtype=torch.float32):
     return tref.wkv6_backward_naive(
         r, k, v, w, u, s0, torch.from_numpy(dy).to(dtype),
         None if dstate is None else torch.from_numpy(dstate))
+
+
+def _chunks(args, dy, dstate, dtype=torch.float32):
+    r, k, v, w, u, s0 = (torch.from_numpy(a) for a in args)
+    r, k, v = (a.to(dtype) for a in (r, k, v))
+    return tref.wkv6_backward_chunks(
+        r, k, v, w, u, s0, torch.from_numpy(dy).to(dtype),
+        None if dstate is None else torch.from_numpy(dstate))
+
+
+def _extreme_decays(case, args):
+    """w = 0 and 1 on whole channels and one channel of one batch and head
+    ("zero-one"), or log-uniform down to 1e-30 ("1e-30")."""
+    w = args[3].copy()
+    if case == "zero-one":
+        w[..., :3] = 0.0
+        w[..., 3:6] = 1.0
+        w[0, :, 1, 6] = 0.0
+    else:
+        rng = np.random.default_rng(30)
+        w = (10.0 ** rng.uniform(-30.0, 0.0, w.shape)).astype(np.float32)
+    return (*args[:3], w, *args[4:])
 
 
 def _assert_close(got, want, rel=REL):
@@ -187,3 +214,49 @@ def test_function_under_torch_func_is_the_plain_backward():
         assert torch.equal(g, w_), name
     y, s = tref.wkv6_naive(r, k, v, w, u, s0)
     assert torch.equal(value, (y * dyt).sum() + (s * dst).sum())
+
+
+@pytest.mark.parametrize("with_dstate", [True, False])
+@pytest.mark.parametrize("B,T,H,hs", [(2, 1, 2, 16), (1, 31, 2, 64),
+                                      (2, 33, 2, 16), (1, 70, 1, 64)])
+def test_chunked_backward_matches_the_plain_scan_and_the_vjp(
+        B, T, H, hs, with_dstate):
+    """``ref.wkv6_backward_chunks``: one chunk, a chunk less a token, a
+    chunk and one, two chunks and a tail of 6; with and without a final
+    state's gradient."""
+    args, dy, ds = _inputs(B, T, H, hs, seed=B * T + hs + 5)
+    ds = ds if with_dstate else None
+    got = _chunks(args, dy, ds)
+    _assert_close(got, _plain(args, dy, ds))
+    _assert_close(got, _jax_vjp(jref.wkv6_naive, args, dy, ds))
+
+
+@pytest.mark.parametrize("case", ["zero-one", "1e-30"])
+def test_chunked_backward_takes_extreme_decays(case):
+    """Every decay a product of w from a chunk or sub-chunk boundary, none
+    divided out: channels at w = 0, 1 and down to 1e-30 are plain cases,
+    over two chunks and a tail."""
+    args, dy, ds = _inputs(2, 70, 2, 64, seed=71)
+    args = _extreme_decays(case, args)
+    got = _chunks(args, dy, ds)
+    _assert_close(got, _plain(args, dy, ds))
+    _assert_close(got, _jax_vjp(jref.wkv6_naive, args, dy, ds))
+
+
+def test_chunked_backward_of_bf16_rkv():
+    """bf16 r, k, v and dy: dr, dk and dv come back bf16 within one bf16
+    ulp of max|.| of the float32 vjp at the same bf16 values, the rest f32
+    within REL; and within REL of the plain scan's float32 gradients
+    before their rounding to bf16 (one ulp for the bf16 three)."""
+    args, dy, ds = _inputs(2, 40, 2, 16, seed=42)
+    got = _chunks(args, dy, ds, torch.bfloat16)
+    assert [g.dtype for g in got] == [torch.bfloat16] * 3 + [torch.float32] * 3
+    bf = lambda a: np.asarray(torch.from_numpy(a).to(torch.bfloat16)
+                              .to(torch.float32))
+    want = _jax_vjp(jref.wkv6_naive, (*map(bf, args[:3]), *args[3:]),
+                    bf(dy), ds)
+    _assert_close(got[:3], want[:3], 2.0 ** -7)
+    _assert_close(got[3:], want[3:], REL)
+    plain = _plain(args, dy, ds, torch.bfloat16)
+    _assert_close(got[:3], plain[:3], 2.0 ** -7)
+    _assert_close(got[3:], plain[3:], REL)
