@@ -56,11 +56,16 @@ Phases, in order; any failure exits non-zero and prints no result:
      round 3, every silo at time_scale 0 (its wall time, heights, round
      marks with WAN and chain bytes, recovery counters, convergence, the
      decoded models on the card; ``quantize``, ``dequantize``,
-     ``add_q8_delta``, ``wsum_q8`` and ``weighted_sum`` launched), the same
-     run on the CPU (rounds and recovery equal; picks, heights and bytes
-     printed beside it: CIDs reach the chain's hash tie-breaks), the same
-     Async run without the fabric on both (picks, height and submission
-     times equal, accuracy within ACC_TOL), a profiled Async WAN run;
+     ``add_q8_delta`` and ``weighted_sum`` launched, ``wsum_q8`` once for
+     each int8 peer group the run's merges received: a peer rebuilt from a
+     delta merges as float32), the same run twice more on the card, as it
+     ran and with cuDNN's deterministic algorithms (whether picks and CIDs
+     repeat), the same run on the CPU (rounds and recovery equal; picks,
+     heights and bytes printed beside it: CIDs reach the chain's hash
+     tie-breaks), the same Async run without the fabric on both (picks,
+     height and submission times equal, accuracy within ACC_TOL,
+     ``wsum_q8`` launched once an int8 peer group), a profiled Async WAN
+     run;
      ``sync-multikrum-wan`` (4 silos over ``lan``, a partition in round 2
      healed in round 3: the Gram kernels behind fabric fetches, one state
      after the heal); ``sync-vs-async-straggler`` (the reference's
@@ -114,10 +119,24 @@ Phases, in order; any failure exits non-zero and prints no result:
      preset in float32, card against CPU, within GRAD_REL; the
      smoke-preset run on both (picks, height, losses after round 1 within
      its LM_LOSS_TOL); its CLI once;
-  8. print the ``kernels`` JSON line (all nine TPU kernels' counterparts
+  8. the multi-pod UnifyFL round step (``repro_torch.core.exchange``):
+     two pods of ``qwen3-1.7b`` at full width stacked on the card, each its
+     own seeded init and a batch of 4 x 512 tokens, one round step at lr
+     0.1 in each configuration of the reference's test (``all``, ``top_k``
+     k = 1, the same with int8, ``above_average`` with MultiKRUM), the
+     launch counts set to 0 just before each: ``all`` equal to the mean of
+     the pods trained apart to one bf16 ulp, no kernel launched; a scored
+     round's merge ``weighted_sum`` once a leaf and pod, every merged leaf
+     bit for bit its ordered FMA chain, W rows summing to 1; int8 within
+     0.05 of the uncompressed round; MultiKRUM finite; peak memory beside
+     its reckoning; ``weighted_sum`` timed at the merge's operand (the
+     bf16 embedding leaf, M = 2); a profiled ``top_k`` round; the pod
+     serve step (each pod's logits those of its own serving, bit for
+     bit); the four rounds at the float32 smoke preset, card against CPU;
+  9. print the ``kernels`` JSON line (all nine TPU kernels' counterparts
      and ``wkv6_backward``, with their launches on the main path and on
-     the Async WAN, MultiKRUM WAN, edge and both LM-training paths), then
-     the result line.
+     the Async WAN, MultiKRUM WAN, edge, both LM-training and the pod-round
+     paths), then the result line.
 
 The card's peak rates are the published H100 SXM figures; a card capped
 below 700 W runs slower, which is why its power limit is printed beside the
@@ -143,6 +162,7 @@ INT8_OPS = 1979e12             # H100 SXM int8 tensor-core rate, dense
 GRAM_ULPS = 1.0                # Gram tolerance, sqrt(N) ulps (check_gram)
 WKV_REL = 1e-5                 # wkv6 tolerance, of max|y| and max|S|
 BF16_ULP = 2.0 ** -7           # one bf16 ulp, relative
+PROFILE_TRIES = 3              # profiles of a row before its gate reads one
 SERVE_ARCH = "rwkv6-1.6b"
 DECODER_REL = 1e-4             # float32 card vs CPU, of max|output| (below)
 # the attention LM families served at full width after RWKV-6: the dense
@@ -284,29 +304,36 @@ def cuda_ms(fn, iters: int, reps: int = 5) -> float:
     return timed({"fn": fn}, iters, reps)["fn"]
 
 
-def device_time(fn, calls: int = 50) -> dict:
+def device_time(fn, expect: dict, calls: int = 50) -> dict:
     """Device time a launch and the kernels ``fn`` launches, from
     ``torch.profiler`` over ``calls`` warm calls (CUDA events at these sizes
-    time the host's launch rate instead). Per launch, not per call: the
-    profiler now and then drops a share of the events, or all of them (then
-    it tries again, twice)."""
-    from torch.profiler import ProfilerActivity, profile
+    time the host's launch rate instead). Per launch, not per call. The
+    session has a quiet margin on each side (``profile_window.profiled``):
+    without it the profiler now and then missed the events nearest an edge
+    of its window, a share of them or all. ``expect`` maps kernel-name
+    prefixes to their launches a call: a profile that saw fewer launches
+    of one of them and more of none, or no kernel at all, is taken again,
+    up to PROFILE_TRIES in all (``profile_tries``); the caller's gate reads
+    the last."""
+    from repro_torch.kernels.profile_window import profiled
+    short = lambda e: e.key.split("<")[0].split("::")[-1].split("(")[0]
     fn()
-    torch.cuda.synchronize()
-    for _ in range(3):
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
+    for tries in range(1, PROFILE_TRIES + 1):
+        with profiled() as prof:
             for _ in range(calls):
                 fn()
-            torch.cuda.synchronize()
         kern = [e for e in prof.key_averages()
                 if e.device_type == torch.autograd.DeviceType.CUDA]
         launches = sum(e.count for e in kern)
-        if launches:
+        want = {k: n * calls for k, n in expect.items()}
+        seen = {k: sum(e.count for e in kern if short(e).startswith(k))
+                for k in want}
+        missed = any(seen[k] < n for k, n in want.items()) and \
+            not any(seen[k] > n for k, n in want.items())
+        if launches and not missed:
             break
-    else:
-        fail("the profiler saw no kernel in three tries")
-    short = lambda e: e.key.split("<")[0].split("::")[-1].split("(")[0]
+    if not launches:
+        fail(f"the profiler saw no kernel in {PROFILE_TRIES} tries")
     by_kernel = {}
     for e in kern:
         k = by_kernel.setdefault(short(e), [0, 0.0])
@@ -318,7 +345,8 @@ def device_time(fn, calls: int = 50) -> dict:
             "device_kernels": sorted(short(e) for e in kern),
             "by_kernel": {k: {"launches_per_call": c / calls,
                               "us_per_launch": us / c}
-                          for k, (c, us) in sorted(by_kernel.items())}}
+                          for k, (c, us) in sorted(by_kernel.items())},
+            "profile_tries": tries}
 
 
 def bound(nbytes: float, flops: float = 0.0, peak_flops: float = F32_FLOPS):
@@ -357,7 +385,7 @@ def launched_once(name: str, call):
 def one_kernel_a_call(name: str, call, kernel: str) -> dict:
     """Device time a launch of ``call``; fails if the profile shows more
     than one launch a call or a kernel other than ``kernel``."""
-    extra = device_time(call)
+    extra = device_time(call, expect={kernel: 1})
     if extra["launches_seen_per_call"] > 1 or any(
             not k.startswith(kernel) for k in extra["device_kernels"]):
         fail(f"{name}: {extra}, want one {kernel} a call")
@@ -369,7 +397,7 @@ def ops_call_profile(name: str, call, kernel: str) -> dict:
     beside ours (``ops.quantize`` pads with ``F.pad``): the device time a
     call in all, and ``kernel``'s own a launch; fails unless ``kernel``
     runs exactly once a call."""
-    extra = device_time(call)
+    extra = device_time(call, expect={kernel: 1})
     own = {k: v for k, v in extra["by_kernel"].items() if k.startswith(kernel)}
     if [v["launches_per_call"] for v in own.values()] != [1.0]:
         fail(f"{name}: {extra}, want one {kernel} a call")
@@ -484,9 +512,10 @@ def check_kernels(shape: str, gen, iters: int):
             "kernel_ms_host_w": ts["host_w"],
             "later": lambda x=x, w=w, w_host=w_host: {
                 "device_us_per_launch_host_w": device_time(
-                    lambda: wsum.weighted_sum(x, w_host))[
-                        "device_us_per_launch"],
-                **device_time(lambda: wsum.weighted_sum(x, w))}}
+                    lambda: wsum.weighted_sum(x, w_host),
+                    expect={"weighted_sum": 1})["device_us_per_launch"],
+                **device_time(lambda: wsum.weighted_sum(x, w),
+                              expect={"weighted_sum": 1})}}
         row("weighted_sum", err, ts["kernel"], ts["plain"],
             (M + 1) * N * 4, 2.0 * M * N, library_ms=ts["library"],
             check=f"abs err <= M*2^-23*max sum|w x| = "
@@ -1206,10 +1235,11 @@ def backward_profile(name: str, call) -> dict:
     CUDA events; so the call is profiled again with that launch off
     (``by_kernel_no_pdl``: each kernel's own device time)."""
     from repro_torch.kernels import rwkv6
-    extra = device_time(call)
+    expect = {k: 1 for k in WKV6_BWD_KERNELS}
+    extra = device_time(call, expect=expect)
     rwkv6.set_backward_pdl(False)
     try:
-        own = device_time(call)
+        own = device_time(call, expect=expect)
     finally:
         rwkv6.set_backward_pdl(True)
     for got in (extra, own):
@@ -1309,7 +1339,8 @@ def reconstruct_line(calls: int = 2000) -> dict:
     per_call = launches / (calls + 1)
     if per_call != 1:
         fail(f"reconstruct: {per_call} add_q8_delta launches a call")
-    prof = device_time(lambda: env.reconstruct(base))
+    prof = device_time(lambda: env.reconstruct(base),
+                       expect={"add_q8_delta": 1})
     line = {"phase": "reconstruct-int8-delta", "n": MAIN_N,
             "tiles_kept": int(env.tiles.shape[0]),
             "host_us_per_call": host_us,
@@ -1385,11 +1416,11 @@ def profile_rounds(compression: str, scorer: str, rounds: int) -> dict:
     """Sync rounds on the card under ``torch.profiler``: the device's busy
     share of the rounds' wall time and the kernels that fill it. Its
     launches are not counted toward the main path."""
-    from torch.profiler import ProfilerActivity, profile
     from repro_torch.config import FedConfig
     from repro_torch.configs import get_config
     from repro_torch.core.builder import build_image_experiment
     from repro_torch.kernels import _build
+    from repro_torch.kernels.profile_window import profiled
     fed = FedConfig(n_silos=3, clients_per_silo=2, rounds=rounds, mode="sync",
                     scorer=scorer, agg_policy="top_k", policy_k=2,
                     compression=compression)
@@ -1398,8 +1429,7 @@ def profile_rounds(compression: str, scorer: str, rounds: int) -> dict:
                                   n_test=450, seed=0, device="cuda")
     torch.cuda.synchronize()
     before = _build.launch_counts()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with profiled() as prof:
         t0 = time.perf_counter()
         orch.run(rounds)
         torch.cuda.synchronize()
@@ -1465,16 +1495,42 @@ ASYNC_DELAYS = (2.0, 2.0, 4.0)
 KILL_NODE = "silo1"
 
 
+def record_run(orch) -> dict:
+    """What a run's silos do, as they do it: each silo's submitted CIDs in
+    order ("cids") and, for each cross-silo merge, the number of int8 peer
+    groups ``apply_cross_silo_vec`` received ("int8_groups"): one
+    ``wsum_q8`` launch a group, none for a peer rebuilt from a delta,
+    which merges as float32."""
+    rec = {"cids": {s.silo_id: [] for s in orch.silos}, "int8_groups": []}
+    for s in orch.silos:
+        submit, merge = s._submit, s.cluster.aggregator.apply_cross_silo_vec
+
+        def sub(method, *, _f=submit, _cids=rec["cids"][s.silo_id], **kw):
+            # a reverted submission retries with the same CID
+            if method == "submit_model" and kw["cid"] not in _cids[-1:]:
+                _cids.append(kw["cid"])
+            return _f(method, **kw)
+
+        def mrg(own_vec, peers, weights, _f=merge):
+            rec["int8_groups"].append(
+                len({int(p.q.shape[0]) for p in peers if p.is_q8}))
+            return _f(own_vec, peers, weights)
+
+        s._submit, s.cluster.aggregator.apply_cross_silo_vec = sub, mrg
+    return rec
+
+
 def async_run(device: str, *, net: bool = True, faults: bool = True,
-              rounds: int = 3, profiler=None):
+              rounds: int = 3, record=None):
     """Async UnifyFL with int8-delta: 3 silos x 2 clients, top-2, paper CNN
     at its published width, every silo at time_scale 0. ``net``: over
     ``wan-heterogeneous`` with gossip (factor 1) and prefetch, a WAL
     directory under ``build/``, and with ``faults`` the kill and restart of
     KILL_NODE; without ``net``, the single-replica ledger. Runs the
     simulated clock dry after ``run`` (gossip and prefetch in flight; their
-    decodes launch kernels too). Returns (orch, global accuracy, run wall
-    seconds, drain wall seconds)."""
+    decodes launch kernels too). ``record``, a dict, receives
+    ``record_run``'s log of the run. Returns (orch, global accuracy, run
+    wall seconds, drain wall seconds)."""
     import shutil
     from repro_torch.config import FaultScenario, FedConfig, NetConfig
     from repro_torch.configs import get_config
@@ -1499,6 +1555,8 @@ def async_run(device: str, *, net: bool = True, faults: bool = True,
         silo_specs=[SiloSpec(extra_train_delay=d) for d in ASYNC_DELAYS])
     for s in orch.silos:
         s.time_scale = 0.0
+    if record is not None:
+        record.update(record_run(orch))
     sync = torch.cuda.synchronize if device == "cuda" else (lambda: None)
     sync()
     t0 = time.perf_counter()
@@ -1573,18 +1631,43 @@ def decoded_on_card(orch) -> int:
     return held
 
 
+def repeat_summary(a: dict, b: dict, sa: dict, sb: dict) -> dict:
+    """Whether two runs of the same export repeat (``record_run`` logs
+    ``a``, ``b`` and ``async_summary``s ``sa``, ``sb``): picks, each silo's
+    submitted CIDs and the first (silo, round) where they part, the int8
+    merge groups, heights."""
+    first = next(([sid, i] for sid in a["cids"]
+                  for i, (x, y) in enumerate(zip(a["cids"][sid],
+                                                 b["cids"][sid])) if x != y),
+                 None)
+    return {"picks_equal": sa["picks"] == sb["picks"],
+            "cids_equal": a["cids"] == b["cids"],
+            "first_cid_differs_at": first,
+            "int8_groups_equal": a["int8_groups"] == b["int8_groups"],
+            "picks": [sa["picks"], sb["picks"]],
+            "int8_groups": [a["int8_groups"], b["int8_groups"]],
+            "ledger_height": [sa["ledger_height"], sb["ledger_height"]]}
+
+
 def async_wan_phase(tree) -> dict:
     """``async-int8-delta-wan``: the Async path over the WAN fabric on the
-    card with the launch counts set to 0 just before it; the same run on the
-    CPU; the same run without the fabric on both (strict parity)."""
+    card with the launch counts set to 0 just before it, ``wsum_q8``
+    launched once for each int8 peer group its merges received (none in a
+    run whose picks were all rebuilt from deltas); the same run twice more
+    on the card, with cuDNN as it is and then with its deterministic
+    algorithms, and whether picks and CIDs repeat; the same run on the
+    CPU; the same run without the fabric on both (strict parity, and
+    ``wsum_q8`` launched, once an int8 peer group)."""
     from repro_torch.kernels import _build
+    rec: dict = {}
     _build.reset_launches()
-    orch, ge, wall, drain = async_run("cuda")
+    orch, ge, wall, drain = async_run("cuda", record=rec)
     launches = _build.launch_counts()
     summ = async_summary(orch, ge)
     line = {"phase": "async-int8-delta-wan", "rounds": 3,
             "delays_s": ASYNC_DELAYS, "kill_restart": KILL_NODE,
             "wall_s": wall, "drain_wall_s": drain, "launches": launches,
+            "int8_merge_groups": rec["int8_groups"],
             "decoded_models_on_card": decoded_on_card(orch), **summ}
     print(json.dumps(line), flush=True)
     if not orch.ledger.verify() or summ["rounds_done"] != [3, 3, 3]:
@@ -1594,9 +1677,34 @@ def async_wan_phase(tree) -> dict:
         if any(t.device.type != "cuda" for t in tree.leaves(s.cluster.params)):
             fail(f"async wan run, {s.silo_id}: params left the card")
     missing = [k for k in ("weighted_sum", "quantize", "dequantize",
-                           "add_q8_delta", "wsum_q8") if launches[k] == 0]
+                           "add_q8_delta") if launches[k] == 0]
     if missing:
         fail(f"async wan run never launched {missing}")
+    if launches["wsum_q8"] != sum(rec["int8_groups"]):
+        fail(f"async wan run: wsum_q8 launched {launches['wsum_q8']} times "
+             f"for {sum(rec['int8_groups'])} int8 peer groups merged "
+             f"({rec['int8_groups']})")
+
+    # does the run repeat on the card? Once more as it ran, then twice with
+    # cuDNN's deterministic algorithms (benchmark off), for this check only
+    again: dict = {}
+    again_summ = async_summary(*async_run("cuda", record=again)[:2])
+    flags = (torch.backends.cudnn.deterministic,
+             torch.backends.cudnn.benchmark)
+    det: list = [{}, {}]
+    try:
+        torch.backends.cudnn.deterministic = True
+        torch.backends.cudnn.benchmark = False
+        det_summ = [async_summary(*async_run("cuda", record=r)[:2])
+                    for r in det]
+    finally:
+        (torch.backends.cudnn.deterministic,
+         torch.backends.cudnn.benchmark) = flags
+    print(json.dumps({
+        "phase": "async-int8-delta-wan-repeat", "cudnn_flags": flags,
+        "as_run": repeat_summary(rec, again, summ, again_summ),
+        "cudnn_deterministic": repeat_summary(*det, *det_summ)}),
+        flush=True)
 
     # the same run on the CPU. CIDs differ from the card's by float rounding
     # and fall into the chain's smallest-head-hash tie-breaks, which decide
@@ -1623,12 +1731,18 @@ def async_wan_phase(tree) -> dict:
             fail(f"async wan run, {sid}: global accuracy {a} on the card vs "
                  f"{b} on the CPU (picks equal: {same['picks']})")
 
-    # without the fabric no CID reaches a tie-break: strict parity
-    runs = {dev: async_run(dev, net=False) for dev in ("cuda", "cpu")}
-    (o_c, ge_c, wall_c, _), (o_h, ge_h, _, _) = runs["cuda"], runs["cpu"]
+    # without the fabric no CID reaches a tie-break: strict parity; its
+    # picks include whole int8 peers, so wsum_q8 launches here
+    led: dict = {}
+    _build.reset_launches()
+    o_c, ge_c, wall_c, _ = async_run("cuda", net=False, record=led)
+    led_launches = _build.launch_counts()
+    o_h, ge_h, _, _ = async_run("cpu", net=False)
     a, b = async_summary(o_c, ge_c), async_summary(o_h, ge_h)
     print(json.dumps({"phase": "async-int8-delta-ledger", "wall_s": wall_c,
-                      **a, "cpu_global_accuracy": b["global_accuracy"]}),
+                      "launches": led_launches,
+                      "int8_merge_groups": led["int8_groups"], **a,
+                      "cpu_global_accuracy": b["global_accuracy"]}),
           flush=True)
     for k in ("rounds_done", "picks", "submit_t", "ledger_height"):
         if a[k] != b[k]:
@@ -1636,6 +1750,10 @@ def async_wan_phase(tree) -> dict:
                  "CPU")
     if not any(p for ps in a["picks"] for p in ps):
         fail("async ledger run: no silo merged a peer")
+    if not 0 < led_launches["wsum_q8"] == sum(led["int8_groups"]):
+        fail(f"async ledger run: wsum_q8 launched "
+             f"{led_launches['wsum_q8']} times for int8 peer groups "
+             f"{led['int8_groups']}")
     for sid, v in a["global_accuracy"].items():
         if abs(v - b["global_accuracy"][sid]) > ACC_TOL:
             fail(f"async ledger run, {sid}: global accuracy {v} on the card "
@@ -1647,9 +1765,8 @@ def profile_async_wan() -> dict:
     """The Async WAN run once more, under ``torch.profiler``: the device's
     busy share of its wall time and the kernels that fill it. Its launches
     are not counted toward the path."""
-    from torch.profiler import ProfilerActivity, profile
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    from repro_torch.kernels.profile_window import profiled
+    with profiled() as prof:
         orch, _, wall, drain = async_run("cuda")
     kern = [e for e in prof.key_averages()
             if e.device_type == torch.autograd.DeviceType.CUDA]
@@ -1876,11 +1993,10 @@ def profile_edge_round() -> dict:
     """One C4 round on the card under ``torch.profiler``: the device's busy
     share of its wall time and the kernels that fill it. Its launches are
     not counted toward the path."""
-    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.kernels.profile_window import profiled
     orch = c4_experiment("cuda", rounds=1)
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with profiled() as prof:
         t0 = time.perf_counter()
         orch.run(1)
         torch.cuda.synchronize()
@@ -2327,13 +2443,12 @@ def profile_serving(model, params) -> dict:
     """One 4 x 64 + 8 request on the card under ``torch.profiler``: the
     device's busy share of the request's wall time and the kernels that
     fill it. Its launches are not counted toward the main path."""
-    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.kernels.profile_window import profiled
     from repro_torch.launch.serve import serve
     g = torch.Generator(device="cuda").manual_seed(2)
     prompts, frames = request_inputs(model.cfg, 4, 64, g)
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with profiled() as prof:
         t0 = time.perf_counter()
         res = serve(model, params, prompts, 8, "cuda", frames)
         wall = time.perf_counter() - t0
@@ -3014,6 +3129,433 @@ def lm_train_cli(arch: str) -> dict:
     return line
 
 
+# --------------------------------------------------------------------------- #
+# Phase 8: the multi-pod UnifyFL round step
+# --------------------------------------------------------------------------- #
+
+# qwen3-1.7b at its published width, P pods stacked on the card: 2, the
+# reference's production pod count (repro/launch/mesh.py, (2, 16, 16)),
+# each pod its own init and batch (tokens, targets rolled by one); one
+# round step at lr 0.1 in each configuration of the reference's own test
+# (tests/test_exchange.py). `reduced`: a pod's batch is 4 x 512 tokens
+# against train_4k's 128 x 4,096 (repro/config.py, LM_SHAPES), so that one
+# card holds both pods; the score batch is ExchangeConfig.score_batch = 2
+# rows of it
+POD_P = 2
+POD_BATCH = (4, 512)
+POD_LR = 0.1
+POD_CONFIGS = {"all": dict(policy="all"),
+               "top_k": dict(policy="top_k", k=1),
+               "top_k-int8": dict(policy="top_k", k=1, compression="int8"),
+               "above_average-multikrum": dict(policy="above_average",
+                                               scorer="multikrum")}
+POD_INT8_TOL = 0.05    # int8 round against the uncompressed one (the test's)
+POD_SERVE = (4, 64, 8)  # a pod's prefill batch and prompt, decode steps
+POD_CPU_RTOL = 1e-5    # merged params, card vs CPU, of each leaf's max|.|
+# one train step's own peak bytes above its params at 4 x 512 (activations,
+# the attention's scores padded to a 1,024-key chunk, bf16 gradients, the
+# new params): 24.74 GB a step, measured by the `all` round's steps
+# computed apart (check_all_round's step_gb) on an H100 80GB
+POD_STEP_GB = 24.74
+
+
+def pod_stack(model, P: int, device: str, seed: int = 100):
+    """P inits of ``model`` from the seeded generators seed .. seed + P - 1
+    on ``device``, stacked [P, ...] leaf by leaf (one init at a time)."""
+    from repro_torch import tree
+    stack = None
+    for i in range(P):
+        p = model.init(torch.Generator(device=device).manual_seed(seed + i),
+                       device)
+        if stack is None:
+            stack = tree.tree_map(lambda x: torch.empty(
+                (P,) + tuple(x.shape), dtype=x.dtype, device=device), p)
+        tree.tree_map(lambda o, x: o[i].copy_(x), stack, p)
+        del p
+    return stack
+
+
+def pod_batch(cfg, P: int, rows: int, seq: int, seed: int, device="cuda"):
+    g = torch.Generator(device=device).manual_seed(seed)
+    toks = torch.randint(0, cfg.vocab_size, (P, rows, seq), generator=g,
+                         device=device)
+    return {"tokens": toks, "targets": torch.roll(toks, -1, dims=2)}
+
+
+def pod_reckoning(N: int, P: int) -> dict:
+    """Device bytes the int8 round step should peak at, from the parameter
+    count N (bf16: a model Bm = 2N bytes). Held by the phase throughout:
+    the P pods and the uncompressed ``top_k`` round's merged stack, kept
+    for the int8 gate (2 P Bm). Training pod i adds the trained stack (P
+    Bm, allocated first) and the step's own live bytes (POD_STEP_GB); the
+    merge adds, beside the trained stack, the dequantized stack (P Bm),
+    the merged stack (P Bm) and one pod's merged tree before its copy
+    (Bm)."""
+    Bm = 2 * N
+    held = 2 * P * Bm
+    moments = {"train_gb": held + P * Bm + POD_STEP_GB * 1e9,
+               "merge_gb": held + 3 * P * Bm + Bm}
+    return {"held_gb": held / 1e9, **{k: v / 1e9 for k, v in moments.items()},
+            "total_gb": max(moments.values()) / 1e9}
+
+
+def leaf_max_rel(a, b) -> float:
+    """max|a - b| over max|b| (float32 views)."""
+    a, b = a.float(), b.float()
+    return float((a - b).abs().max()) / max(float(b.abs().max()), 1e-30)
+
+
+def check_all_round(model, stack, batch, out) -> dict:
+    """``all``: each pod's merged leaves are the float32 mean of the P pods'
+    ``make_train_step`` outputs, computed apart, to one bf16 ulp of the
+    leaf's largest entry, and the pods agree bit for bit. Returns the gap
+    and each step's own peak bytes above its params."""
+    from repro_torch import tree
+    from repro_torch.core.exchange import _pod, make_train_step
+    ts = make_train_step(model, POD_LR)
+    apart, step_gb = [], []
+    for i in range(POD_P):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        before = torch.cuda.memory_allocated()
+        apart.append(ts(_pod(stack, i), _pod(batch, i))[0])
+        torch.cuda.synchronize()
+        step_gb.append((torch.cuda.max_memory_allocated() - before) / 1e9)
+    gap, rounded = 0.0, True
+    for o, *pods in zip(tree.leaves(out), *(tree.leaves(t) for t in apart)):
+        mean = pods[0].float()
+        for q in pods[1:]:
+            mean = mean + q.float()
+        mean = mean * (1.0 / POD_P)
+        gap = max(gap, leaf_max_rel(o[0], mean))
+        rounded &= torch.equal(o[0], mean.to(o.dtype))
+        if not all(torch.equal(o[0], o[i]) for i in range(1, POD_P)):
+            fail("pod round all: the pods' merged params differ")
+    if not gap <= BF16_ULP:
+        fail(f"pod round all: {gap} of a leaf's largest entry from the mean "
+             f"of the pods trained apart, over one bf16 ulp")
+    return {"gap_to_mean_apart": gap, "equal_to_rounded_mean": bool(rounded),
+            "step_gb": step_gb}
+
+
+def check_scored_round(out, info) -> float:
+    """A scored round: every W row sums to 1 within 1e-6, and each pod's
+    merged leaves are ``ref.weighted_sum_ordered`` of the gathered stack
+    and its W row, bit for bit (2^26 columns at a time). Returns the
+    largest gap to the plain merge (``ref.weighted_sum``), of each leaf's
+    largest entry."""
+    from repro_torch import tree
+    from repro_torch.kernels import ref
+    W = info["weights"]
+    if not float((W.sum(dim=1) - 1.0).abs().max()) <= 1e-6:
+        fail(f"pod round: W rows do not sum to 1: {W.tolist()}")
+    gap = 0.0
+    for (path, g), o in zip(tree.leaves_with_paths(info["gathered"]),
+                            tree.leaves(out)):
+        x, o = g.reshape(POD_P, -1), o.reshape(POD_P, -1)
+        for i in range(POD_P):
+            for a, b in chunks(x.shape[1], 1 << 26):
+                xc = x[:, a:b]
+                if not torch.equal(o[i, a:b], ref.weighted_sum_ordered(
+                        xc, W[i]).to(g.dtype)):
+                    fail(f"pod round: {'/'.join(path)} of pod {i} is not the "
+                         f"ordered weighted sum in [{a}, {b})")
+                gap = max(gap, leaf_max_rel(o[i, a:b],
+                                            ref.weighted_sum(xc, W[i])))
+    return gap
+
+
+def check_int8_round(out, out_topk, info) -> dict:
+    """int8: every leaf within POD_INT8_TOL of the uncompressed ``top_k``
+    round, and each pod's codes round-trip each leaf within
+    amax / 127 * 0.51."""
+    from repro_torch import tree
+    from repro_torch.core.exchange import _dq8, _q8
+    gap = max(float((a.float() - b.float()).abs().max())
+              for a, b in zip(tree.leaves(out), tree.leaves(out_topk)))
+    worst = 0.0
+    for leaf in tree.leaves(info["trained"]):
+        for i in range(POD_P):
+            x = leaf[i].float()
+            q, sc = _q8(leaf[i])
+            amax = float(x.abs().max())
+            err = float((_dq8(q, sc, torch.float32) - x).abs().max())
+            worst = max(worst, err / max(amax / 127, 1e-30))
+    if not gap < POD_INT8_TOL or not worst <= 0.51:
+        fail(f"pod round int8: {gap} from the uncompressed round (bound "
+             f"{POD_INT8_TOL}), code round trip {worst} x amax/127")
+    return {"gap_to_uncompressed": gap, "round_trip_of_amax_127": worst}
+
+
+def pod_serve_phase(model, stack) -> dict:
+    """``make_pod_serve_step``: each pod prefills 4 x 64 tokens, its cache
+    padded to 64 + 8 as ``serve`` pads it, then 8 greedy decode steps; each
+    pod's prefill and decode logits equal ``model.prefill`` /
+    ``model.decode_step`` on that pod's params alone, bit for bit."""
+    from repro_torch import tree
+    from repro_torch.core.exchange import _pod, make_pod_serve_step
+    from repro_torch.launch.serve import pad_cache
+    B, S, steps = POD_SERVE
+    toks = pod_batch(model.cfg, POD_P, B, S, seed=21)["tokens"]
+    pre = make_pod_serve_step(model, None, "prefill")
+    dec = make_pod_serve_step(model, None, "decode")
+
+    def padded(cache, lead=()):
+        full = tree.tree_map(lambda c: torch.zeros(
+            lead + tuple(c.shape), dtype=c.dtype, device="cuda"),
+            model.init_cache(B, S + steps, "cuda"))
+        return pad_cache(full, cache)
+
+    with torch.inference_mode():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        logits, cache = pre(stack, {"tokens": toks})
+        torch.cuda.synchronize()
+        prefill_s = time.perf_counter() - t0
+        cache = padded(cache, (POD_P,))
+        ids, steps_logits = logits[:, :, -1].argmax(-1), []
+        t0 = time.perf_counter()
+        for s in range(steps):
+            out, cache = dec(stack, {"token": ids, "pos": S + s}, cache)
+            steps_logits.append(out)
+            ids = out.argmax(-1)
+        torch.cuda.synchronize()
+        decode_s = time.perf_counter() - t0
+        same = True
+        for i in range(POD_P):
+            p = _pod(stack, i)
+            alone, c = model.prefill(p, {"tokens": toks[i]})
+            same &= torch.equal(alone, logits[i])
+            c, nxt = padded(c), alone[:, -1].argmax(-1)
+            for s in range(steps):
+                alone, c = model.decode_step(p, {"token": nxt, "pos": S + s},
+                                             c)
+                same &= torch.equal(alone, steps_logits[s][i])
+                nxt = alone.argmax(-1)
+    line = {"phase": f"pod-serve-{model.cfg.arch_id}", "pods": POD_P,
+            "batch": B, "prompt_len": S, "decode_steps": steps,
+            "prefill_s": prefill_s, "decode_s_per_step": decode_s / steps,
+            "equal_to_each_pod_alone": bool(same),
+            "finite": bool(torch.isfinite(logits).all()),
+            "device": torch.cuda.get_device_name(0)}
+    print(json.dumps(line), flush=True)
+    if not same or not line["finite"]:
+        fail("pod serve step: a pod's logits differ from its own serving, or "
+             "are not finite")
+    return line
+
+
+def pod_merge_row(info) -> dict:
+    """``weighted_sum`` at the pod merge's operand: M = 2, the bf16
+    embedding leaf of ``qwen3-1.7b`` (153,600 x 2,048, the vocabulary padded)
+    as the round gathered it, W row 0 on the card; CUDA events (kernel,
+    plain, ``torch.tensordot`` as the reference writes the merge), the
+    profiler's device time a launch, the bytes bound."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.wsum import weighted_sum
+    x = info["gathered"]["embed"]["embedding"].reshape(POD_P, -1)
+    w = info["weights"][0].contiguous()
+    fns = {"kernel": lambda: weighted_sum(x, w),
+           "plain": lambda: ref.weighted_sum(x, w),
+           "library": lambda: torch.tensordot(
+               w, x.to(torch.float32), dims=([0], [0])).to(x.dtype)}
+    ts = timed(fns, 10, reps=3)
+    dev = device_time(fns["kernel"], expect={"weighted_sum": 1})
+    M, N = x.shape
+    b_ms, b_by = bound((M + 1) * N * x.element_size(), 2.0 * M * N)
+    line = {"phase": "pod-merge-weighted_sum", "M": M, "N": N,
+            "dtype": str(x.dtype), "ms": ts["kernel"],
+            "dev_us": dev["device_us_per_launch"], "plain_ms": ts["plain"],
+            "library_ms": ts["library"], "bound_ms": b_ms, "bound_by": b_by,
+            "share_of_bound": b_ms / ts["kernel"],
+            "bit_equal_to_ordered": bool(torch.equal(
+                fns["kernel"](), ref.weighted_sum_ordered(x, w).to(x.dtype))),
+            "device": torch.cuda.get_device_name(0)}
+    print(json.dumps(line), flush=True)
+    if not line["bit_equal_to_ordered"]:
+        fail("pod merge row: weighted_sum is not its ordered FMA chain")
+    return line
+
+
+def pod_profile(model, stack, batch) -> dict:
+    """One ``top_k`` round step under ``torch.profiler``: the device's busy
+    share of its wall time and the operations that fill it (a profile
+    that saw no kernel is taken again, as ``device_time`` does)."""
+    from repro_torch.core.exchange import (ExchangeConfig,
+                                           make_unifyfl_round_step)
+    from repro_torch.kernels.profile_window import profiled
+    step = make_unifyfl_round_step(model, None,
+                                   ExchangeConfig(**POD_CONFIGS["top_k"]),
+                                   POD_LR)
+    for _ in range(PROFILE_TRIES):
+        with profiled() as prof:
+            t0 = time.perf_counter()
+            out, _ = step(stack, batch)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        del out
+        kern = [e for e in prof.key_averages()
+                if e.device_type == torch.autograd.DeviceType.CUDA]
+        if kern:
+            break
+    else:
+        fail("the profiler saw no kernel of the pod round in "
+             f"{PROFILE_TRIES} tries")
+    busy_us = sum(e.self_device_time_total for e in kern)
+    top = sorted(kern, key=lambda e: -e.self_device_time_total)[:10]
+    wsum = [e for e in kern if "weighted_sum_kernel" in e.key]
+    line = {"phase": f"profile-pod-round-{model.cfg.arch_id}-top_k",
+            "wall_s": wall, "device_busy_s": busy_us / 1e6,
+            "device_busy_share": busy_us / 1e6 / wall,
+            "device_idle_share": 1.0 - busy_us / 1e6 / wall,
+            "device_kernels": len(kern),
+            "device_launches": sum(e.count for e in kern),
+            "weighted_sum_kernel": {
+                "count": sum(e.count for e in wsum),
+                "ms": sum(e.self_device_time_total for e in wsum) / 1e3},
+            "top_kernels": [{"name": e.key[:80], "count": e.count,
+                             "ms": e.self_device_time_total / 1e3}
+                            for e in top]}
+    print(json.dumps(line), flush=True)
+    return line
+
+
+def pod_cross_check_cpu() -> dict:
+    """``pod-round-smoke-cross-check-cpu``: the four round steps at the
+    float32 smoke preset, the same pods and batch on the card and on the
+    CPU: merged params within POD_CPU_RTOL of each leaf's largest entry,
+    W equal."""
+    from repro_torch import tree
+    from repro_torch.config import replace
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.core.exchange import (ExchangeConfig,
+                                           make_unifyfl_round_step)
+    from repro_torch.models import build_model
+    model = build_model(replace(get_smoke_config(LM_ARCH),
+                                param_dtype="float32",
+                                compute_dtype="float32"))
+    stack = pod_stack(model, POD_P, "cpu")
+    batch = pod_batch(model.cfg, POD_P, 4, 32, seed=7, device="cpu")
+    on_card = lambda t: tree.tree_map(lambda x: x.to("cuda"), t)
+    rows = {}
+    for name, kw in POD_CONFIGS.items():
+        step = make_unifyfl_round_step(model, None, ExchangeConfig(**kw),
+                                       POD_LR)
+        ic, ih = {}, {}
+        oc, lc = step(on_card(stack), on_card(batch), ic)
+        oh, lh = step(stack, batch, ih)
+        gap = max(leaf_max_rel(a.cpu(), b) for a, b in
+                  zip(tree.leaves(oc), tree.leaves(oh)))
+        w_equal = ("weights" not in ic and "weights" not in ih) or \
+            torch.equal(ic["weights"].cpu(), ih["weights"])
+        rows[name] = {"merged_max_rel": gap, "w_equal": w_equal,
+                      "loss_gap": float((lc.cpu() - lh).abs().max())}
+    line = {"phase": "pod-round-smoke-cross-check-cpu", "pods": POD_P,
+            "rows": rows}
+    print(json.dumps(line), flush=True)
+    for name, r in rows.items():
+        if not (r["merged_max_rel"] <= POD_CPU_RTOL and r["w_equal"]):
+            fail(f"pod round {name}: card vs CPU {r}")
+    return line
+
+
+def pod_round_phase(tree) -> dict:
+    """``pod-round-qwen3-1.7b-*``: one round step of two stacked pods of
+    ``qwen3-1.7b`` at full width in each configuration of POD_CONFIGS, the
+    launch counts set to 0 just before each; their gates; the merge's
+    ``weighted_sum`` row; a profiled ``top_k`` round; the pod serve step;
+    the smoke preset against the CPU. Returns the launches of the four
+    rounds, summed."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.builder import resolve_device
+    from repro_torch.core.exchange import (ExchangeConfig,
+                                           make_unifyfl_round_step)
+    from repro_torch.kernels import _build
+    from repro_torch.models import build_model
+    resolve_device("cuda")
+    gc.collect()
+    torch.cuda.empty_cache()
+    model = build_model(get_config(LM_ARCH))
+    t0 = time.perf_counter()
+    stack = pod_stack(model, POD_P, "cuda")
+    torch.cuda.synchronize()
+    n_params = sum(t[0].numel() for t in tree.leaves(stack))
+    n_leaves = len(tree.leaves(stack))
+    print(json.dumps({"phase": f"init-pods-{LM_ARCH}", "pods": POD_P,
+                      "params_a_pod": n_params, "leaves": n_leaves,
+                      "init_s": time.perf_counter() - t0}), flush=True)
+    if n_params != FAMILY_PARAMS[LM_ARCH][0]:
+        fail(f"pods of {LM_ARCH}: {n_params} params a pod")
+    batch = pod_batch(model.cfg, POD_P, *POD_BATCH, seed=5)
+    totals, peaks, kept = {}, {}, {}
+    for name, kw in POD_CONFIGS.items():
+        step = make_unifyfl_round_step(model, None, ExchangeConfig(**kw),
+                                       POD_LR)
+        info: dict = {}
+        gc.collect()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        _build.reset_launches()
+        t0 = time.perf_counter()
+        out, losses = step(stack, batch, info)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = _build.launch_counts()
+        peaks[name] = torch.cuda.max_memory_allocated() / 1e9
+        for k, v in launches.items():
+            totals[k] = totals.get(k, 0) + v
+        line = {"phase": f"pod-round-{LM_ARCH}-{name}", "pods": POD_P,
+                "batch": list(POD_BATCH), "lr": POD_LR, "config": kw,
+                "wall_s": wall, "losses": losses.tolist(),
+                "scores": info["scores"].tolist()
+                if info.get("scores") is not None else None,
+                "weights": info["weights"].tolist()
+                if "weights" in info else None,
+                "weighted_sum_launches": launches["weighted_sum"],
+                "launches": launches, "peak_mem_gb": peaks[name]}
+        want = 0 if name == "all" else POD_P * n_leaves
+        if launches["weighted_sum"] != want or sum(launches.values()) != want:
+            print(json.dumps(line), flush=True)
+            fail(f"pod round {name}: launches {launches}, want weighted_sum "
+                 f"x {want} and nothing else")
+        if name == "all":
+            line.update(check_all_round(model, stack, batch, out))
+        else:
+            line["max_rel_gap_to_plain_merge"] = check_scored_round(out, info)
+        if name == "top_k":
+            pod_merge_row(info)
+        if name == "top_k-int8":
+            line.update(check_int8_round(out, kept.pop("top_k"), info))
+        if name == "above_average-multikrum":
+            sk = info["sketches"]
+            line["sketch_dists"] = ((sk[:, None] - sk[None]) ** 2).sum(
+                -1).tolist()
+            if not all(bool(torch.isfinite(t).all())
+                       for t in tree.leaves(out)):
+                fail("pod round multikrum: a merged leaf is not finite")
+        print(json.dumps(line), flush=True)
+        if name == "top_k":
+            kept["top_k"] = out
+        del out, info
+    reckon = pod_reckoning(n_params, POD_P)
+    peak = max(peaks.values())
+    print(json.dumps({"phase": f"pod-round-{LM_ARCH}-memory",
+                      "peak_gb_by_round": peaks,
+                      "max_memory_allocated_gb": peak, "reckoning": reckon,
+                      "card_gb": torch.cuda.get_device_properties(
+                          0).total_memory / 1e9}), flush=True)
+    if abs(peak - reckon["total_gb"]) > LM_MEM_MARGIN * reckon["total_gb"]:
+        fail(f"pod rounds peaked at {peak} GB against {reckon['total_gb']} "
+             "reckoned")
+    pod_profile(model, stack, batch)
+    pod_serve_phase(model, stack)
+    del stack, batch
+    gc.collect()
+    torch.cuda.empty_cache()
+    pod_cross_check_cpu()
+    return {"launches": totals}
+
+
 def main() -> int:
     # set before the first allocation on the card: phase 7 holds three
     # silos of qwen3-1.7b and their 13.8 GB FedAvg stacks, and without
@@ -3173,7 +3715,11 @@ def main() -> int:
         lm_cross_check_cpu(arch)
         lm_train_cli(arch)
 
-    # phase 8: the kernels line and the result line
+    # phase 8: the multi-pod round step, two pods of qwen3-1.7b at full
+    # width on the card, its serve step, the smoke preset against the CPU
+    pod = pod_round_phase(tree)
+
+    # phase 9: the kernels line and the result line
     # row name -> (the kernels line's name, source, the TPU kernel, the
     # wrapper whose launches count it)
     meta = {
@@ -3236,6 +3782,7 @@ def main() -> int:
                             counter],
                         "launches_lm_train_rwkv6":
                             lm["rwkv6-1.6b"]["launches"][counter],
+                        "launches_pod_round": pod["launches"][counter],
                         "max_abs_err": r["max_abs_err"], "ms": r["kernel_ms"],
                         "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
                         "bound_by": r["bound_by"],

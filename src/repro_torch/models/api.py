@@ -11,6 +11,9 @@ of (params, batch), suitable for ``torch.func.grad_and_value`` / ``vmap``:
   prefill(params, batch)             -> (logits [B,S,V], cache)
   init_cache(batch, seq_len, device) -> cache (nested dict of tensors)
   decode_step(params, batch, cache)  -> (logits [B,V], cache)
+  param_rules()                      -> path-regex sharding rules
+  cache_spec(batch)                  -> nested dict of PartitionSpec for
+                                        the cache (``repro_torch.pshard``)
 
 Batches:
   LM train:  {'tokens' [B,S] int, 'targets' [B,S] int}
@@ -33,6 +36,9 @@ class Model:
     def init(self, generator, device):
         return self._m.init_params(generator, self.cfg, device)
 
+    def param_rules(self):
+        return self._m.param_rules(self.cfg)
+
     def loss(self, params, batch):
         return self._m.loss_fn(params, batch, self.cfg)
 
@@ -43,6 +49,13 @@ class Model:
         if self.kind == "ssm":
             return rwkv6.init_state(self.cfg, batch, device)
         return self._m.init_cache(self.cfg, batch, seq_len, device)
+
+    def cache_spec(self, batch: int):
+        if self.kind == "cnn":
+            raise ValueError("cnn has no decode path")
+        if self.kind == "ssm":
+            return rwkv6.state_spec(self.cfg, batch)
+        return self._m.cache_spec(self.cfg, batch)
 
     def prefill(self, params, batch):
         if self.kind == "encdec":

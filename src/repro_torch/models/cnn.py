@@ -67,3 +67,7 @@ def loss_fn(params, batch, cfg: ModelConfig):
     acc = torch.mean((torch.argmax(logits, -1) == labels).to(torch.float32))
     return loss, {"loss": loss, "ce": loss, "accuracy": acc,
                   "aux": torch.zeros((), device=logits.device)}
+
+
+def param_rules(cfg: ModelConfig):
+    return [(r".*", (None, None, None, None))]

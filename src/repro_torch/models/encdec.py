@@ -17,6 +17,7 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch import pshard
 from repro_torch.config import ModelConfig
 from repro_torch.models import layers as L
 
@@ -153,6 +154,13 @@ def init_cache(cfg: ModelConfig, batch: int, seq_len: int, device):
             "mem_v": torch.zeros(mem_shape, dtype=dt, device=device)}
 
 
+def cache_spec(cfg: ModelConfig, batch: int):
+    kv_ax = "model" if cfg.n_kv_heads >= 16 else None
+    b_ax = "data" if batch > 1 else None  # pod handled by stacking in multi-pod
+    s = pshard.resolve_spec(None, b_ax, None, kv_ax, None)
+    return {"k": s, "v": s, "mem_k": s, "mem_v": s}
+
+
 def prefill(params, batch, cfg: ModelConfig):
     """batch: {"frames" [B, M, D], "tokens" [B, S]} -> (logits [B, S, V],
     cache at position S, the memory projected once a decoder layer)."""
@@ -185,3 +193,16 @@ def decode_step(params, token, pos: int, cache, cfg: ModelConfig):
                             L.rms_norm(x, lp["mlp_norm"], cfg.norm_eps), cfg)
     x = L.rms_norm(x, params["final_norm"], cfg.norm_eps)
     return L.logits_out(params["embed"], x, cfg)[:, 0], cache
+
+
+def param_rules(cfg: ModelConfig):
+    return [
+        (r"embed/embedding", ("model", None)),
+        (r"embed/unembed", (None, "model")),
+        (r"attn/wq$", (None, None, "model", None)),
+        (r"attn/w[kv]$", (None, None, "model", None)),
+        (r"attn/wo$", (None, "model", None, None)),
+        (r"mlp/w[ig]$", (None, None, "model")),
+        (r"mlp/wo$", (None, "model", None)),
+        (r".*", (None, None, None, None)),
+    ]

@@ -25,6 +25,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from repro_torch import pshard
 from repro_torch.config import ModelConfig
 from repro_torch.models import layers as L
 
@@ -198,6 +199,20 @@ def init_cache(cfg: ModelConfig, batch: int, seq_len: int, device):
     return cache
 
 
+def cache_spec(cfg: ModelConfig, batch: int):
+    b_ax = "data" if batch > 1 else None  # pod handled by stacking in multi-pod
+    w_ax = "data" if batch == 1 else None
+    rec = {"conv": pshard.resolve_spec(None, b_ax, None, "model"),
+           "h": pshard.resolve_spec(None, b_ax, "model")}
+    n_groups, tail = _n_groups_tail(cfg)
+    spec = {"rec1": rec, "rec2": rec,
+            "k": pshard.resolve_spec(None, b_ax, w_ax, None, None),
+            "v": pshard.resolve_spec(None, b_ax, w_ax, None, None)}
+    if tail:
+        spec["tail"] = rec
+    return spec
+
+
 def _stack(states):
     return {k: torch.stack([s[k] for s in states]) for k in states[0]}
 
@@ -292,3 +307,20 @@ def decode_step(params, token, pos: int, cache, cfg: ModelConfig):
         _write(cache["tail"], t, st)
     x = L.rms_norm(x, params["final_norm"], cfg.norm_eps)
     return L.logits_out(params["embed"], x, cfg)[:, 0], cache
+
+
+def param_rules(cfg: ModelConfig):
+    fsdp = "data" if cfg.fsdp else None
+    return [
+        (r"embed/embedding", ("model", None)),
+        (r"embed/unembed", (fsdp, "model")),
+        (r"attn/wq$", (None, fsdp, "model", None)),
+        (r"attn/w[kv]$", (None, fsdp, None, None)),  # MQA: replicate kv
+        (r"attn/wo$", (None, "model", None, fsdp)),
+        (r"(wg|wi)$", (None, fsdp, "model")),
+        (r"wo$", (None, "model", fsdp)),
+        (r"lru_w[ax]", (None, fsdp, "model")),
+        (r"conv_w", (None, None, "model")),
+        (r"lru_(lam|ba|bx)", (None, "model")),
+        (r".*", (None, None, None, None)),
+    ]

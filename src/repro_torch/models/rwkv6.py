@@ -19,6 +19,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from repro_torch import pshard
 from repro_torch.config import ModelConfig
 from repro_torch.kernels import ops
 from repro_torch.models import layers as L
@@ -198,6 +199,13 @@ def init_state(cfg: ModelConfig, batch: int, device):
                                dtype=torch.float32, device=device)}
 
 
+def state_spec(cfg: ModelConfig, batch: int):
+    b_ax = "data" if batch > 1 else None  # pod handled by stacking in multi-pod
+    return {"tm_x": pshard.resolve_spec(None, b_ax, None, None),
+            "cm_x": pshard.resolve_spec(None, b_ax, None, None),
+            "wkv": pshard.resolve_spec(None, b_ax, "model", None, None)}
+
+
 def forward(params, tokens, cfg: ModelConfig, state=None):
     """tokens [B, S] -> (final-normed x [B, S, D], new state); a Python loop
     over the stacked layers."""
@@ -231,3 +239,15 @@ def decode_step(params, token, pos, state, cfg: ModelConfig):
     del pos  # recurrent: position-free
     x, new_state = forward(params, token[:, None], cfg, state)
     return L.logits_out(params["embed"], x, cfg)[:, 0], new_state
+
+
+def param_rules(cfg: ModelConfig):
+    return [
+        (r"embed/embedding", ("model", None)),
+        (r"embed/unembed", (None, "model")),
+        (r"w[rkvg]$|wo$|cm_wr", (None, None, "model")),   # [L, D, D]
+        (r"cm_wk", (None, None, "model")),                 # [L, D, F]
+        (r"cm_wv", (None, "model", None)),                 # [L, F, D]
+        (r"decay_w|mix_w", (None, None, None)),
+        (r".*", (None, None, None, None)),
+    ]

@@ -14,6 +14,7 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch import pshard
 from repro_torch.config import ModelConfig
 from repro_torch.models import layers as L
 from repro_torch.models import moe as moe_lib
@@ -108,6 +109,15 @@ def init_cache(cfg: ModelConfig, batch: int, seq_len: int, device):
             "v": torch.zeros(shape, dtype=dt, device=device)}
 
 
+def cache_spec(cfg: ModelConfig, batch: int):
+    kv_ax = "model" if cfg.n_kv_heads >= 16 else None
+    b_ax = "data" if batch > 1 else None  # pod handled by stacking in multi-pod
+    # batch=1 long-decode: shard the window dim over data instead of batch
+    w_ax = "data" if batch == 1 else None
+    return {"k": pshard.resolve_spec(None, b_ax, w_ax, kv_ax, None),
+            "v": pshard.resolve_spec(None, b_ax, w_ax, kv_ax, None)}
+
+
 def prefill(params, tokens, cfg: ModelConfig):
     """Returns (logits [B, S, V], cache at position S)."""
     x, _, (k, v) = forward(params, tokens, cfg, collect_kv=True)
@@ -133,3 +143,57 @@ def decode_step(params, token, pos: int, cache, cfg: ModelConfig):
         x = x + _ffn(lp, x, cfg)[0]
     x = L.rms_norm(x, params["final_norm"], cfg.norm_eps)
     return L.logits_out(params["embed"], x, cfg)[:, 0], cache
+
+
+# --------------------------------------------------------------------------- #
+# Sharding rules
+# --------------------------------------------------------------------------- #
+
+def param_rules(cfg: ModelConfig):
+    if cfg.sharding_mode == "dp":
+        # pure data parallelism over BOTH axes: params replicated (fits for
+        # <=3B), only gradient all-reduces, no param all-gathers
+        return [(r".*", (None, None, None, None))]
+    if cfg.sharding_mode == "fsdp":
+        # pure ZeRO-3: every weight matrix sharded over BOTH mesh axes on one
+        # dim; no tensor parallelism, so no per-layer activation all-reduces,
+        # only per-layer param all-gathers + gradient reduce-scatters
+        dm = ("data", "model")
+        ep = cfg.moe and cfg.moe.n_experts % 16 == 0
+        return [
+            # vocab over ONE axis only (the reference's gather partitioner
+            # takes no multi-axis-sharded gather operand)
+            (r"embed/embedding", ("model", None)),
+            (r"embed/unembed", (None, dm)),
+            (r"attn/wq$", (None, dm, None, None)),
+            (r"attn/w[kv]$", (None, dm, None, None)),
+            (r"attn/wo$", (None, None, None, dm)),
+            (r"moe/router", (None, None, None)),
+            (r"moe/w[igo]$", (None, "model", "data", None) if ep
+             else (None, None, dm, None)),
+            (r"mlp/w[ig]$", (None, None, dm)),
+            (r"mlp/wo$", (None, dm, None)),
+            (r"norm", (None, None)),
+        ]
+    fsdp = "data" if cfg.fsdp else None
+    kv_ax = "model" if cfg.n_kv_heads >= 16 else None
+    return [
+        # embedding rows stay vocab-sharded only (as the reference keeps
+        # them: its gather partitioner takes no (vocab, d)-sharded table)
+        (r"embed/embedding", ("model", None)),
+        (r"embed/unembed", (fsdp, "model")),
+        (r"attn/wq$", (None, fsdp, "model", None)),     # [L, D, H, hd]
+        (r"attn/w[kv]$", (None, fsdp, kv_ax, None)),
+        (r"attn/wo$", (None, "model", None, fsdp)),     # [L, H, hd, D]
+        (r"attn/b[qkv]$", (None, None, None)),
+        (r"moe/router", (None, None, None)),
+        (r"moe/w[ig]$", (None, "model", fsdp, None))
+        if (cfg.moe and cfg.moe.sharding == "ep")
+        else (r"moe/w[ig]$", (None, None, fsdp, "model")),  # [L, E, D, F]
+        (r"moe/wo$", (None, "model", None, fsdp))
+        if (cfg.moe and cfg.moe.sharding == "ep")
+        else (r"moe/wo$", (None, None, "model", fsdp)),     # [L, E, F, D]
+        (r"mlp/w[ig]$", (None, fsdp, "model")),         # [L, D, F]
+        (r"mlp/wo$", (None, "model", fsdp)),            # [L, F, D]
+        (r"norm", (None, None)),
+    ]

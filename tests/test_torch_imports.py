@@ -35,7 +35,9 @@ GUARD = textwrap.dedent("""
                  "repro_torch.edge.devices", "repro_torch.edge.fleet",
                  "repro_torch.fed.hbfl", "repro_torch.models.transformer",
                  "repro_torch.optim.schedules", "repro_torch.launch.train",
-                 "repro_torch.checkpoint", "repro_torch.checkpoint.checkpoint"):
+                 "repro_torch.checkpoint", "repro_torch.checkpoint.checkpoint",
+                 "repro_torch.pshard", "repro_torch.launch.mesh",
+                 "repro_torch.core.exchange"):
         assert must in names, must
     for name in names:
         importlib.import_module(name)
