@@ -90,7 +90,8 @@ Phases, in order; any failure exits non-zero and prints no result:
      bit-identical, the CLI once, and a float32 CPU check at reduced depth
      (FAMILY_CHECK_DEPTH; the MoE's routing compared exactly first);
   7. federated LM training, ``lm-train-qwen3-1.7b``: 2 Sync rounds of 3
-     silos x 2 clients of ``qwen3-1.7b`` at full width (a bf16 init from
+     silos x 2 clients of ``qwen3-1.7b`` at full width and half its depth
+     (LM_DEPTH: 14 of 28 layers; a bf16 init from
      a seeded generator on the card, float32 after the first SGD step as
      in the reference; every silo at time_scale 0; int8 wire, loss
      scoring, top-2; seq
@@ -102,14 +103,15 @@ Phases, in order; any failure exits non-zero and prints no result:
      replayed to the peak (``memory_at_peak``: the live bytes by part and
      by site); the same run at the smoke preset in float32 on the card
      and on the CPU (picks, height, losses within LM_LOSS_TOL, each silo's
-     parameters within LM_PARAM_RTOL); the CLI
+     parameters within LM_PARAM_RTOL; run in phase 9, while the dry runs
+     take the host); the CLI
      once. Before it all, in phase 3, the five kernels of this path at
      the width of ``qwen3-1.7b`` (N = 1,723,982,848: ``check_model_width``).
      Then ``lm-train-rwkv6-1.6b``, the same run of ``rwkv6-1.6b`` at full
-     width through the ``wkv6`` and ``wkv6_backward`` kernels, with its
+     width and 12 of its 24 layers through the ``wkv6`` and ``wkv6_backward`` kernels, with its
      own rate (RWKV6_LR) and gates: after round 1 every time-mix leaf of
-     every silo moved, and ``wkv6`` / ``wkv6_backward`` launched 24 times
-     a forward / backward pass; eval losses finite (their change
+     every silo moved, and ``wkv6`` / ``wkv6_backward`` launched once a
+     layer a forward / backward pass; eval losses finite (their change
      printed). Before it, one full-width client step held against the
      plain scan (``rwkv6_step_check``): at 24 layers in bf16 every
      ``wkv6`` and ``wkv6_backward`` call of the step against its plain
@@ -118,7 +120,7 @@ Phases, in order; any failure exits non-zero and prints no result:
      RWKV6_STEP_TOL. After it, one client step's gradients at its smoke
      preset in float32, card against CPU, within GRAD_REL; the
      smoke-preset run on both (picks, height, losses after round 1 within
-     its LM_LOSS_TOL); its CLI once;
+     its LM_LOSS_TOL; in phase 9 too); its CLI once;
   8. the multi-pod UnifyFL round step (``repro_torch.core.exchange``):
      two pods of ``qwen3-1.7b`` at full width stacked on the card, each its
      own seeded init and a batch of 4 x 512 tokens, one round step at lr
@@ -133,7 +135,24 @@ Phases, in order; any failure exits non-zero and prints no result:
      bf16 embedding leaf, M = 2); a profiled ``top_k`` round; the pod
      serve step (each pod's logits those of its own serving, bit for
      bit); the four rounds at the float32 smoke preset, card against CPU;
-  9. print the ``kernels`` JSON line (all nine TPU kernels' counterparts
+     once its timed and profiled rows are done, the dry run's four cells
+     start on the host (below);
+  9. the mesh layer, part 2: ``mesh-one-rank-qwen3-1.7b``, the full-width
+     ``make_train_step`` (each layer rematerialised, 4 x 512 tokens) with
+     DTensor params on a (1, 1) mesh over a one-rank NCCL group, bit for
+     bit the plain step, its local-op FLOPs equal to the dry run's count
+     of the same cell at (1, 1) and its peak within MESH_PEAK_MARGIN of
+     the dry run's; phase 7's two smoke-preset runs, card against CPU,
+     while the cells run; then the ``dryrun-*`` lines of DRYRUN_CELLS, each
+     cell one host process on a fake process group of the production
+     mesh (256 or 512 ranks, fake cuda tensors: nothing allocated):
+     per-device FLOPs, traffic, collectives by kind and axis, peak, the
+     roofline terms at H100 data-sheet rates and the dominant one; the
+     groups are destroyed as each cell ends. (Phase 6 also runs the
+     MoE's 16 EP shard bodies at full width, ``moe-ep-olmoe-1b-7b``.)
+     Each layer of every training step is rematerialised (``cfg.remat``
+     'full'): RWKV-6's ``wkv6`` launches twice a layer a step;
+ 10. print the ``kernels`` JSON line (all nine TPU kernels' counterparts
      and ``wkv6_backward``, with their launches on the main path and on
      the Async WAN, MultiKRUM WAN, edge, both LM-training and the pod-round
      paths), then the result line.
@@ -205,7 +224,12 @@ LM_ARCH = "qwen3-1.7b"
 # heads of 64, vocab 65,536), through the wkv6 and wkv6_backward kernels;
 # its params as jax.eval_shape of the reference's init counts them
 LM_ARCHS = (LM_ARCH, "rwkv6-1.6b")
-LM_PARAMS = {LM_ARCH: FAMILY_PARAMS[LM_ARCH][0], "rwkv6-1.6b": 1_599_670_272}
+# phase 7's two federated runs: full width, the depth cut to half (28 ->
+# 14 and 24 -> 12 layers) to keep the script inside its time limit once
+# every layer is rematerialised and phase 9 runs (a round's host work, the
+# store's copies and hashes, scales with the model); their param counts
+LM_DEPTH = {LM_ARCH: 14, "rwkv6-1.6b": 12}
+LM_PARAMS = {LM_ARCH: 1_019_278_848, "rwkv6-1.6b": 934_053_888}
 LM_DATA_VOCAB = 4096
 LM_STREAM = 60_000
 LM_EXP = dict(seq_len=128, batch_size=8, steps_per_epoch=8, lr=0.05)
@@ -228,7 +252,7 @@ RECURRENT_STREAM = 6000
 CHAOS_EPS = 1e-7
 TIME_MIX = ("wr", "wk", "wv", "wg", "decay_base", "decay_w1", "decay_w2",
             "bonus_u", "mix_mu", "mix_w1", "mix_w2")
-LM_MEM_EVENTS = 4_000_000      # allocator events kept for the peak's replay
+LM_MEM_EVENTS = 6_000_000      # allocator events kept for the peak's replay
 # a training step's saved activations and bf16 weight casts at seq 128,
 # batch 8. qwen3-1.7b: 11.84 GB live at the peak's replay (the attention's
 # scores padded to a 1,024-key chunk the most), on an H100 80GB.
@@ -239,8 +263,27 @@ LM_MEM_EVENTS = 4_000_000      # allocator events kept for the peak's replay
 # wkv6_backward scratch of a layer, 0.034 GB (each 32-token chunk's
 # incoming state and outgoing gradient, [8, 32, 4, 64, 64] f32 twice, and
 # du's partials). Its peak is the FedAvg moment, 38 P, all the same
-LM_STEP_GB = {LM_ARCH: 12.0, "rwkv6-1.6b": 8.31}
+# Each layer rematerialised (cfg.remat 'full'): qwen3-1.7b's saved
+# activations fall by 1.67 GB at this shape (launch/opstats.mem_tracker
+# over one float32 make_train_step under fake tensors at 28 layers: 23.77
+# GB peak without remat, 22.10 with): 10.33 GB at 28 layers. At LM_DEPTH
+# (half the layers) the same reckoning's activations halve (1.41 -> 0.70
+# GB for qwen3-1.7b, 0.40 -> 0.20 for rwkv6-1.6b): qwen3-1.7b 10.33 / 2;
+# rwkv6-1.6b 0.558 + 12 x 0.321 + 0.034 (the split above)
+LM_STEP_GB = {LM_ARCH: 5.17, "rwkv6-1.6b": 4.44}
 LM_MEM_MARGIN = 0.05           # the peak may pass its reckoning by 5 %
+MOE_EP_ARCH = "olmoe-1b-7b"    # phase 6's EP check (moe_ep_check)
+MOE_EP_RANKS = 16              # the production model axis
+MOE_EP_ULPS = 4                # its sum vs the one-device branch
+# phase 9: the dry run's cells on the card's host (fake process groups of
+# 256 and 512 ranks, fake cuda tensors), one process each, started once
+# phase 8's timed and profiled rows are done and read at phase 9
+DRYRUN_CELLS = (("qwen3-1.7b", "train_4k", False),
+                ("qwen3-1.7b", "train_4k", True),
+                ("olmoe-1b-7b", "train_4k", False),
+                ("rwkv6-1.6b", "train_4k", False))
+DRYRUN_OUT = os.path.join("build", "dryrun_torch_smoke")
+MESH_PEAK_MARGIN = 0.05        # one-rank peak vs the dry run's reckoning
 # rwkv6-1.6b's learning rate. Its full-width gradients at the reference's
 # init are ill-conditioned: at 24 layers in bf16 their size turns on the
 # rounding of the forward (rwkv6_step_check prints the kernel path, the
@@ -2318,6 +2361,68 @@ def combine_determinism(model, params) -> dict:
     return line
 
 
+def moe_ep_check(model, params) -> dict:
+    """The MoE's EP shard body (``models/moe._moe_shard``, the
+    reference's ``_moe_local_offset``) at full width, one expert block of
+    the production ``model`` axis (16 ranks: 4 of 64 experts) after
+    another, on layer 0's MoE input of 4 x 64 tokens, the partial outputs
+    summed in rank order, against the one-device branch: the dispatch each
+    block ran (its expert ids, its rows of the capacity buffer, its picks'
+    slots) equal to the branch's for those experts, every kept pick run by
+    exactly one block, and the sum within MOE_EP_ULPS bf16 ulps of the
+    branch's largest entry (the partials add a token's experts in another
+    order)."""
+    from repro_torch.models import layers as L
+    from repro_torch.models import moe
+    cfg = model.cfg
+    g = torch.Generator(device="cuda").manual_seed(5)
+    prompts, _ = request_inputs(cfg, 4, 64, g)
+    lp = L.layer_at(params["layers"], 0)
+    with torch.inference_mode():
+        x = L.embed(params["embed"], prompts, cfg)
+        pos = torch.arange(64, dtype=torch.int32, device="cuda").expand(4, 64)
+        h, _ = L.attention_block(lp["attn"], L.rms_norm(
+            x, lp["attn_norm"], cfg.norm_eps), cfg, positions=pos)
+        xn = L.rms_norm(x + h, lp["mlp_norm"], cfg.norm_eps)
+        x2 = xn.reshape(-1, cfg.d_model)
+        local: dict = {}
+        want, _ = moe._moe_local(lp["moe"], x2, cfg, local)
+        e_per = cfg.moe.n_experts // MOE_EP_RANKS
+        total, same = None, True
+        runs = torch.zeros_like(local["slot"])
+        for mi in range(MOE_EP_RANKS):
+            lo = mi * e_per
+            p_l = {k: (v if k == "router" else v[lo:lo + e_per])
+                   for k, v in lp["moe"].items()}
+            shard: dict = {}
+            part, _ = moe._moe_shard(p_l, x2, cfg, lo, e_per, shard)
+            mine = (local["idx"] >= lo) & (local["idx"] < lo + e_per)
+            same &= torch.equal(shard["idx"], local["idx"]) and \
+                torch.equal(shard["buf_idx"],
+                            local["buf_idx"][lo:lo + e_per]) and \
+                torch.equal(shard["slot"],
+                            torch.where(mine, local["slot"], -1))
+            runs += shard["slot"] >= 0
+            total = part if total is None else total + part
+        same &= torch.equal(runs, (local["slot"] >= 0).to(runs.dtype))
+    top = float(want.float().abs().max())
+    ulp = 2.0 ** (int(torch.tensor(top).log2().floor()) - 7)
+    gap = float((total.float() - want.float()).abs().max())
+    line = {"phase": f"moe-ep-{cfg.arch_id}", "ranks": MOE_EP_RANKS,
+            "experts_a_rank": e_per, "tokens": list(prompts.shape),
+            "capacity": moe._capacity(x2.shape[0], cfg),
+            "dispatch_equal_local": bool(same), "max_abs_gap": gap,
+            "gap_bf16_ulps": gap / ulp, "max_abs_out": top,
+            "bit_identical": bool(torch.equal(total, want)),
+            "check": "each block's expert ids, buffer rows and slots the "
+                     "local branch's, each kept pick run once; gap <= "
+                     f"{MOE_EP_ULPS} bf16 ulps of max|out|"}
+    print(json.dumps(line), flush=True)
+    if not same or not gap <= MOE_EP_ULPS * ulp:
+        fail(f"moe-ep {cfg.arch_id}: {line}")
+    return line
+
+
 def cross_check_family_on_cpu(arch: str, steps: int = 8) -> dict:
     """``arch``'s full width at the depth of FAMILY_CHECK_DEPTH, float32
     with TF32 off, params drawn on the card and copied to the CPU, 4 x 64
@@ -2431,6 +2536,8 @@ def serve_family(arch: str) -> None:
         serve_request(model, params, b, s, gen, seed=30 + i)
     if model.cfg.family == "moe":
         combine_determinism(model, params)
+        if arch == MOE_EP_ARCH:
+            moe_ep_check(model, params)
     print(json.dumps(profile_serving(model, params)), flush=True)
     del params
     torch.cuda.empty_cache()
@@ -2521,7 +2628,9 @@ def lm_reckoning(P: int, arch: str) -> dict:
     backward of its second client's step adds the first client's model,
     the second's and its gradients (12P) and the step's saved activations
     and bf16 weight casts at seq 128, batch 8, and for RWKV-6 the
-    backward's workspace (LM_STEP_GB of ``arch``): 30P + LM_STEP_GB."""
+    backward's workspace (LM_STEP_GB of ``arch``): 30P + LM_STEP_GB.
+    Each layer is rematerialised: its activations are saved only at the
+    layer boundaries and recomputed a layer at a time in the backward."""
     state = {"silo_models_f32": 12 * P, "decoded_int8_caches": 6 * P}
     base = sum(state.values())
     moments = {"merge_gb": base + 16 * P, "fedavg_gb": base + 20 * P,
@@ -2611,13 +2720,16 @@ def time_mix_moved(orch, init) -> dict:
     return moved
 
 
-def lm_passes(orch, fed_steps: int) -> dict:
+def lm_passes(orch, fed_steps: int, remat: str) -> dict:
     """The forward and backward passes the run made, from its own records:
-    a training step is one of each (``fed_steps`` of them); a scorer
+    a training step is one backward and ``layers.remat_forwards(remat)``
+    forwards (two under remat 'full', the second the layers'
+    recomputation; ``fed_steps`` steps); a scorer
     evaluates each model it was assigned on its W test windows, one
     forward a window (``fed.scorebatch``: starts every seq_len tokens, at
     most 4); each silo evaluates its own trained model on its W windows
     once a round (its self score, ``Silo.train_and_submit``)."""
+    from repro_torch.models import layers as L
     seq = LM_EXP["seq_len"]
 
     def windows(silo):
@@ -2628,13 +2740,15 @@ def lm_passes(orch, fed_steps: int) -> dict:
     scored = sum(w[sid] for e in orch.contract.models.values()
                  for sid in e.assigned)
     own = LM_ROUNDS * sum(w.values())
-    return {"backward": fed_steps, "forward": fed_steps + scored + own,
+    return {"backward": fed_steps,
+            "forward": L.remat_forwards(remat) * fed_steps + scored + own,
             "scoring_forwards": scored, "self_eval_forwards": own,
             "windows": w}
 
 
 def lm_train_phase(tree, arch: str) -> dict:
-    """``lm-train-<arch>``: 2 Sync rounds at full width on the card (a bf16
+    """``lm-train-<arch>``: 2 Sync rounds at full width and LM_DEPTH's
+    depth on the card (a bf16
     init from a seeded generator on the card; float32 params after the
     first SGD step, as in the reference), with the launch counts set to 0
     just before; round 2 under ``torch.profiler`` (device idle share, top
@@ -2645,6 +2759,7 @@ def lm_train_phase(tree, arch: str) -> dict:
     ``wkv6`` launched once a layer a forward pass, ``wkv6_backward`` once
     a layer a backward pass."""
     from torch.profiler import ProfilerActivity, profile
+    from repro_torch.config import replace
     from repro_torch.configs import get_config
     from repro_torch.kernels import _build
     rwkv = arch.startswith("rwkv6")
@@ -2663,7 +2778,7 @@ def lm_train_phase(tree, arch: str) -> dict:
         torch.cuda.memory._record_memory_history(max_entries=LM_MEM_EVENTS,
                                                  stacks="python")
     t0 = time.perf_counter()
-    cfg = get_config(arch)
+    cfg = replace(get_config(arch), n_layers=LM_DEPTH[arch])
     exp = {**LM_EXP, "lr": RWKV6_LR} if rwkv else LM_EXP
     orch = lm_experiment(cfg, LM_DATA_VOCAB, "cuda",
                          torch.Generator(device="cuda").manual_seed(0),
@@ -2714,7 +2829,7 @@ def lm_train_phase(tree, arch: str) -> dict:
     fed = orch.fed
     steps = LM_ROUNDS * fed.n_silos * fed.clients_per_silo * \
         fed.local_epochs * LM_EXP["steps_per_epoch"]
-    passes = lm_passes(orch, steps)
+    passes = lm_passes(orch, steps, cfg.remat)
     want = {"wkv6": cfg.n_layers * passes["forward"] if rwkv else 0,
             "wkv6_backward": cfg.n_layers * passes["backward"] if rwkv
             else 0}
@@ -2839,7 +2954,9 @@ def rwkv6_step_check() -> dict:
     ``ref.wkv6_naive`` and each ``wkv6_backward`` against
     ``ref.wkv6_backward_naive`` on the very operands and cotangent the
     step hands the kernel, by check_wkv6's and check_wkv6_backward's
-    rules, one launch of each a layer. The whole step's gradients: the
+    rules: two ``wkv6`` launches a layer (its forward and, each layer
+    rematerialised, its recomputation in the backward) and one
+    ``wkv6_backward``. The whole step's gradients: the
     kernel path against the plain path (autograd of ``ref.wkv6_naive``),
     every leaf within the depth's tolerance of its largest entry, with the
     gap of ``ChunkOrderScan`` to the plain path beside it. At the full
@@ -2853,6 +2970,7 @@ def rwkv6_step_check() -> dict:
     from repro_torch.fed.client import Client
     from repro_torch.kernels import _build, ops, ref, rwkv6
     from repro_torch.models import build_model
+    from repro_torch.models import layers as L
     t0 = time.perf_counter()
     stream = make_lm_dataset(vocab=LM_DATA_VOCAB, length=LM_STREAM,
                              seed=0)[0]
@@ -2935,8 +3053,9 @@ def rwkv6_step_check() -> dict:
                    if not (c["ok"] if k == "wkv6" else
                            all(e["ok"] for e in c.values()))]}
         rows.append(row)
-        if row["per_call_failed"] or launches != {"wkv6": n,
-                                                  "wkv6_backward": n} or \
+        if row["per_call_failed"] or launches != {
+                "wkv6": L.remat_forwards(model.cfg.remat) * n,
+                "wkv6_backward": n} or \
                 (tol is not None and not row["kernel_vs_plain_max_gap"]
                  <= tol):
             fails.append(f"{dtype} x {n} layers")
@@ -2978,7 +3097,8 @@ def rwkv6_grad_check() -> dict:
     CPU, from the same init and the client's own first batch (a Markov
     stream, as the client draws it; both made on the CPU): every leaf's
     gradient within GRAD_REL of its largest entry, every time-mix gradient
-    nonzero, ``wkv6`` and ``wkv6_backward`` launched once a layer. Beside
+    nonzero, ``wkv6`` launched once a layer's forward (``cfg.remat``
+    'full' runs it twice a step) and ``wkv6_backward`` once a layer. Beside
     it, the CPU's own move at that point when the params move by
     CHAOS_EPS relative (the model's conditioning, ungated)."""
     import numpy as np
@@ -2988,6 +3108,7 @@ def rwkv6_grad_check() -> dict:
     from repro_torch.fed.client import Client
     from repro_torch.kernels import _build
     from repro_torch.models import build_model
+    from repro_torch.models import layers as L
     from repro_torch.tree import tree_map
     cfg = replace(get_smoke_config("rwkv6-1.6b"), param_dtype="float32",
                   compute_dtype="float32")
@@ -3019,8 +3140,9 @@ def rwkv6_grad_check() -> dict:
             "launches": {k: launches[k] for k in ("wkv6", "wkv6_backward")}}
     print(json.dumps(line), flush=True)
     if line["max_rel_err"] > GRAD_REL or zero or \
-            line["launches"] != {"wkv6": cfg.n_layers,
-                                 "wkv6_backward": cfg.n_layers}:
+            line["launches"] != {
+                "wkv6": L.remat_forwards(cfg.remat) * cfg.n_layers,
+                "wkv6_backward": cfg.n_layers}:
         fail(f"RWKV-6 gradients, card against CPU: {line}")
     return line
 
@@ -3154,9 +3276,12 @@ POD_SERVE = (4, 64, 8)  # a pod's prefill batch and prompt, decode steps
 POD_CPU_RTOL = 1e-5    # merged params, card vs CPU, of each leaf's max|.|
 # one train step's own peak bytes above its params at 4 x 512 (activations,
 # the attention's scores padded to a 1,024-key chunk, bf16 gradients, the
-# new params): 24.74 GB a step, measured by the `all` round's steps
-# computed apart (check_all_round's step_gb) on an H100 80GB
-POD_STEP_GB = 24.74
+# new params), each layer rematerialised (cfg.remat 'full'): 10.42 GB a
+# step, reckoned by launch/opstats.mem_tracker over the step under fake
+# tensors (the same reckoning without remat gives 24.74 GB, the step
+# measured by the `all` round's steps computed apart, check_all_round's
+# step_gb, on an H100 80GB before remat was ported)
+POD_STEP_GB = 10.42
 
 
 def pod_stack(model, P: int, device: str, seed: int = 100):
@@ -3459,13 +3584,14 @@ def pod_cross_check_cpu() -> dict:
     return line
 
 
-def pod_round_phase(tree) -> dict:
+def pod_round_phase(tree, after_timed) -> dict:
     """``pod-round-qwen3-1.7b-*``: one round step of two stacked pods of
     ``qwen3-1.7b`` at full width in each configuration of POD_CONFIGS, the
     launch counts set to 0 just before each; their gates; the merge's
-    ``weighted_sum`` row; a profiled ``top_k`` round; the pod serve step;
-    the smoke preset against the CPU. Returns the launches of the four
-    rounds, summed."""
+    ``weighted_sum`` row; a profiled ``top_k`` round; then
+    ``after_timed()``, once every timed and profiled row is done; the pod
+    serve step; the smoke preset against the CPU. Returns the launches of
+    the four rounds, summed."""
     from repro_torch.configs import get_config
     from repro_torch.core.builder import resolve_device
     from repro_torch.core.exchange import (ExchangeConfig,
@@ -3548,12 +3674,189 @@ def pod_round_phase(tree) -> dict:
         fail(f"pod rounds peaked at {peak} GB against {reckon['total_gb']} "
              "reckoned")
     pod_profile(model, stack, batch)
+    after_timed()
     pod_serve_phase(model, stack)
     del stack, batch
     gc.collect()
     torch.cuda.empty_cache()
     pod_cross_check_cpu()
     return {"launches": totals}
+
+
+# --------------------------------------------------------------------------- #
+# Phase 9: the mesh layer, part 2 (DTensor placements, the dry run)
+# --------------------------------------------------------------------------- #
+
+def start_dryruns() -> list:
+    """The dry run of each DRYRUN_CELLS cell, one process each, all started
+    together (each on a fake process group of the production mesh's 256 or
+    512 ranks, fake cuda tensors; nothing on the card is allocated). Their
+    records go to DRYRUN_OUT."""
+    os.makedirs(os.path.join(HERE, DRYRUN_OUT), exist_ok=True)
+    env = dict(os.environ, PYTHONPATH=os.path.join(HERE, "src"))
+    procs = []
+    for arch, shape, multi in DRYRUN_CELLS:
+        cmd = [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
+               arch, "--shape", shape, "--mesh",
+               "multi" if multi else "single", "--out", DRYRUN_OUT, "--force"]
+        procs.append(((arch, shape, multi), time.perf_counter(),
+                      subprocess.Popen(cmd, cwd=HERE, env=env,
+                                       stdout=subprocess.PIPE,
+                                       stderr=subprocess.STDOUT, text=True)))
+    return procs
+
+
+def card_processes() -> list:
+    """The processes holding a context on the card, as ``nvidia-smi
+    --query-compute-apps`` lists them (pid, used MiB); a container may
+    hide them."""
+    out = subprocess.run(["nvidia-smi", "--query-compute-apps=pid,used_memory",
+                          "--format=csv,noheader,nounits"],
+                         capture_output=True, text=True).stdout
+    return [line.strip() for line in out.splitlines() if line.strip()]
+
+
+def finish_dryruns(procs) -> list:
+    """Wait for the dry-run processes and print a ``dryrun-*`` line a
+    cell: per-device FLOPs, the traffic proxy, collectives by kind and
+    axis with their bytes, the peak, the roofline terms (H100 data-sheet
+    constants) and the dominant one. Fails on a cell that failed, and
+    unless the multi-pod cell counted ``weighted_sum``'s fake op, the
+    RWKV-6 cell ``wkv6`` and ``wkv6_backward``'s, and the OLMoE cell ran
+    its experts a block of 4 (64 experts over the 16-rank model axis)."""
+    lines = []
+    for (arch, shape, multi), t0, p in procs:
+        out = p.communicate(timeout=600)[0]
+        tag = f"{arch}__{shape}__{'multi' if multi else 'single'}"
+        path = os.path.join(HERE, DRYRUN_OUT, tag + ".json")
+        if p.returncode != 0 or not os.path.exists(path):
+            fail(f"dry run {tag}: exit {p.returncode}\n{out[-3000:]}")
+        with open(path) as f:
+            rec = json.load(f)
+        h, ma, rf = rec["hlo"], rec["memory_analysis"], rec["roofline"]
+        line = {"phase": f"dryrun-{arch}-{shape}-"
+                         f"{'multi' if multi else 'single'}",
+                "mesh": rec["mesh"], "ranks": rec["n_devices"],
+                "wall_s": time.perf_counter() - t0,
+                "flops_per_device": h["flops"],
+                "model_flops_per_device": rf["model_flops_per_dev"],
+                "traffic_bytes": h["traffic_bytes"],
+                "collective_bytes": h["collective_bytes"],
+                "collectives": [{k: c[k] for k in ("kind", "axis", "bytes",
+                                                   "count")}
+                                for c in h["collectives_by_axis"]],
+                "flops_by_op": h["flops_by_op"],
+                "argument_bytes": ma["argument_bytes"],
+                "peak_bytes": h["peak_bytes"],
+                "roofline_s": {k: v for k, v in rf.items()
+                               if k.endswith("_s")},
+                "dominant": rf["dominant"],
+                "constants": rec["constants"]}
+        print(json.dumps(line), flush=True)
+        ops = h["flops_by_op"]
+        if multi and not ops.get("repro_torch::weighted_sum"):
+            fail(f"dry run {tag}: the merge's weighted_sum was not counted")
+        if arch.startswith("rwkv6") and not (
+                ops.get("repro_torch::wkv6") and
+                ops.get("repro_torch::wkv6_backward")):
+            fail(f"dry run {tag}: wkv6 / wkv6_backward not counted: {ops}")
+        if not h["flops"] > 0 or h["peak_bytes"] <= 0:
+            fail(f"dry run {tag}: {line}")
+        lines.append(line)
+    return lines
+
+
+def _free_port() -> int:
+    import socket
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+def mesh_one_rank() -> dict:
+    """``make_train_step`` of ``qwen3-1.7b`` at full width (remat 'full',
+    4 x 512 tokens, phase 8's shape) with DTensor params on a (1, 1) mesh
+    over a real one-rank NCCL group, against the same step on plain
+    tensors and against the dry run of the same cell at (1, 1) on a fake
+    group: new params and loss bit for bit the plain step's, its local-op
+    FLOPs (``launch/opstats``) equal to the dry run's, and
+    ``torch.cuda.max_memory_allocated`` within MESH_PEAK_MARGIN of the
+    dry run's peak (arguments and the step's own bytes)."""
+    import torch.distributed as dist
+    from repro_torch import pshard, tree
+    from repro_torch.config import ShapeConfig
+    from repro_torch.core.exchange import make_train_step
+    from repro_torch.launch import dryrun, opstats
+    from repro_torch.launch.mesh import make_production_mesh
+    t0 = time.perf_counter()
+    B, S = POD_BATCH
+    shape = ShapeConfig("train_4k", S, B, "train")
+    rec = dryrun.run_cell(LM_ARCH, "train_4k", False, mesh_shape=(1, 1),
+                          device="cuda", shape=shape, verbose=False)
+    dry_s = time.perf_counter() - t0
+    model, params = init_full_width(LM_ARCH, FAMILY_PARAMS[LM_ARCH])
+    g = torch.Generator(device="cuda").manual_seed(9)
+    toks = torch.randint(0, model.cfg.vocab_size, (B, S), generator=g,
+                         device="cuda", dtype=torch.int32)
+    batch = {"tokens": toks, "targets": torch.roll(toks, -1, dims=1)}
+    step = make_train_step(model, dryrun.LR)
+    plain, plain_m = step(params, batch)
+    dist.init_process_group("nccl", init_method=f"tcp://localhost:"
+                            f"{_free_port()}", rank=0, world_size=1)
+    try:
+        mesh = make_production_mesh(shape=(1, 1))
+        with pshard.use_mesh(mesh):
+            dp = pshard.distribute_params(params, model.param_rules())
+            db = {k: pshard.place(v, mesh, pshard.BATCH, None)
+                  for k, v in batch.items()}
+        args = (dp, db)
+        arg_bytes = sum(t.to_local().numel() * t.to_local().element_size()
+                        for a in args for t in tree.leaves(a))
+        torch.cuda.synchronize()
+        before = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        t1 = time.perf_counter()
+        counter = opstats.OpCounter(opstats.group_axes(mesh))
+        with counter, pshard.use_mesh(mesh), pshard.dtensor_context(dp):
+            new, metrics = step(dp, db)
+        torch.cuda.synchronize()
+        step_s = time.perf_counter() - t1
+        peak = torch.cuda.max_memory_allocated() - before + arg_bytes
+        same = all(torch.equal(a.to_local(), b) for a, b in
+                   zip(tree.leaves(new), tree.leaves(plain)))
+        loss_same = bool(torch.equal(metrics["loss"].to_local(),
+                                     plain_m["loss"]))
+        placed = sorted({str(tuple(t.placements)) for t in tree.leaves(new)})
+    finally:
+        dist.destroy_process_group()
+    dry_peak = rec["hlo"]["peak_bytes"]
+    line = {"phase": f"mesh-one-rank-{LM_ARCH}", "mesh": [1, 1],
+            "tokens": [B, S], "remat": model.cfg.remat,
+            "params_equal_plain": bool(same), "loss_equal_plain": loss_same,
+            "loss": float(plain_m["loss"]),
+            "flops_local_ops": counter.stats.flops,
+            "flops_dry_run": rec["hlo"]["flops"],
+            "max_memory_allocated_gb": peak / 1e9,
+            "dry_run_peak_gb": dry_peak / 1e9,
+            "peak_rel_gap": (peak - dry_peak) / dry_peak,
+            "argument_bytes": arg_bytes,
+            "dry_run_argument_bytes": rec["memory_analysis"]["argument_bytes"],
+            "new_param_placements": placed, "step_s": step_s,
+            "dry_run_s": dry_s, "s": time.perf_counter() - t0}
+    print(json.dumps(line), flush=True)
+    if not (same and loss_same):
+        fail(f"mesh one rank: the DTensor step is not the plain step's bits")
+    if counter.stats.flops != rec["hlo"]["flops"] or \
+            arg_bytes != rec["memory_analysis"]["argument_bytes"]:
+        fail(f"mesh one rank: FLOPs or argument bytes differ from the dry "
+             f"run's: {line}")
+    if abs(peak - dry_peak) > MESH_PEAK_MARGIN * dry_peak:
+        fail(f"mesh one rank: peak {peak / 1e9:.3f} GB against the dry "
+             f"run's {dry_peak / 1e9:.3f} GB")
+    del params, plain, new, dp
+    gc.collect()
+    torch.cuda.empty_cache()
+    return line
 
 
 def main() -> int:
@@ -3703,8 +4006,9 @@ def main() -> int:
     for arch in FAMILY_PARAMS:
         serve_family(arch)
 
-    # phase 7: federated LM training at full width, its CPU check, the CLI;
-    # qwen3-1.7b, then rwkv6-1.6b through the wkv6 backward kernel
+    # phase 7: federated LM training at full width, the CLI; qwen3-1.7b,
+    # then rwkv6-1.6b through the wkv6 backward kernel (their smoke
+    # presets against the CPU run in phase 9, beside the dry runs)
     lm = {}
     for arch in LM_ARCHS:
         if arch.startswith("rwkv6"):
@@ -3712,14 +4016,38 @@ def main() -> int:
         lm[arch] = lm_train_phase(tree, arch)
         if arch.startswith("rwkv6"):
             rwkv6_grad_check()
-        lm_cross_check_cpu(arch)
         lm_train_cli(arch)
 
     # phase 8: the multi-pod round step, two pods of qwen3-1.7b at full
-    # width on the card, its serve step, the smoke preset against the CPU
-    pod = pod_round_phase(tree)
+    # width on the card, its serve step, the smoke preset against the CPU;
+    # the dry run's cells (host processes on fake groups) start once its
+    # timed and profiled rows are done, so that none of them shares the
+    # host's cores with another process
+    dry: list = []
+    try:
+        pod = pod_round_phase(tree, lambda: dry.extend(start_dryruns()))
 
-    # phase 9: the kernels line and the result line
+        # phase 9: the mesh layer, part 2: the DTensor step on one real
+        # rank against the plain step and the dry run, then the dry run's
+        # cells; while they run, phase 7's untimed CPU checks
+        t9 = time.perf_counter()
+        mesh_one_rank()
+        on_card = card_processes()
+        for arch in LM_ARCHS:
+            lm_cross_check_cpu(arch)
+        finish_dryruns(dry)
+        print(json.dumps({"phase": "mesh-layer-part-2",
+                          "s": time.perf_counter() - t9,
+                          "dry_run_pids": [p.pid for _, _, p in dry],
+                          "card_processes_during_dry_runs": on_card}),
+              flush=True)
+    finally:
+        for _, _, p in dry:      # a failed phase leaves none running
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+
+    # phase 10: the kernels line and the result line
     # row name -> (the kernels line's name, source, the TPU kernel, the
     # wrapper whose launches count it)
     meta = {

@@ -29,6 +29,13 @@ of the policy and merge arithmetic:
   under ``jax.vmap(axis_name="pod")``: the gathered models are the stack
   itself, the score matrix each pod's row of scores stacked.
 
+With DTensor params on a (pod, data, model) mesh the process form is the
+reference's shard_map, manual over ``pod`` and automatic over ``data`` /
+``model``: each pod's block runs on the (data, model) submesh as DTensors
+(the train step's collectives are DTensor's), and the exchange gathers each
+rank's local shards over its ``pod`` group only and merges them with
+``weighted_sum``, shard by shard.
+
 The control-plane path (ledger + store) in ``core/orchestrator.py`` is the
 WAN variant of the same round.
 """
@@ -40,7 +47,7 @@ from typing import Callable, Optional
 import torch
 import torch.distributed as dist
 
-from repro_torch import tree
+from repro_torch import pshard, tree
 from repro_torch.kernels.wsum import weighted_sum
 from repro_torch.models.api import Model
 
@@ -148,12 +155,15 @@ def _sketch(params, dim: int):
     """Linear sketch of a parameter tree -> [dim] f32: each leaf (in
     sorted-key order) summed over all but its first axis, its leading
     profile added into the accumulator, the sum over ``sqrt(#leaves)``.
-    Pairwise L2 distances of sketches keep the krum ranking."""
+    Pairwise L2 distances of sketches keep the krum ranking. A DTensor
+    leaf's profile is summed over its shards and made whole on every rank
+    of its mesh, as the reference's sketch runs automatic over ``data`` /
+    ``model`` inside its shard_map."""
     leaves = tree.leaves(params)
     acc = torch.zeros(dim, dtype=F32, device=leaves[0].device)
     for leaf in leaves:
-        s = leaf.sum(dim=tuple(range(1, leaf.dim())), dtype=F32) \
-            if leaf.dim() > 1 else leaf.to(F32)
+        s = _full(leaf.sum(dim=tuple(range(1, leaf.dim())), dtype=F32)
+                  if leaf.dim() > 1 else leaf.to(F32))
         take = min(s.shape[0], dim)
         acc[:take] += s[:take]
     return acc / torch.sqrt(torch.tensor(float(len(leaves)), dtype=F32,
@@ -210,44 +220,77 @@ def _all_gather(t, group):
     return torch.stack(parts)
 
 
+def _shards(params):
+    """(local shards, lift): a tree of DTensors -> each rank's local
+    shards and the function that makes such a tree of shards DTensors
+    again (same mesh and placements); plain tensors pass through."""
+    if not pshard._is_dtensor(tree.leaves(params)[0]):
+        return params, lambda t: t
+    from torch.distributed.tensor import DTensor
+    meta = tree.tree_map(lambda d: (d.device_mesh, tuple(d.placements),
+                                    d.shape, d.stride()), params)
+    paths = [p for p, _ in tree.leaves_with_paths(params)]
+
+    def lift(t):
+        return tree.unflatten(paths, [
+            DTensor.from_local(x, mesh, pl, run_check=False, shape=shape,
+                               stride=stride)
+            for x, (mesh, pl, shape, stride) in zip(tree.leaves(t),
+                                                    tree.leaves(meta))])
+    return tree.tree_map(lambda d: d.to_local(), params), lift
+
+
+def _full(x):
+    return x.full_tensor() if pshard._is_dtensor(x) else x
+
+
 def exchange(params, score_fn: Callable, score_batch, cfg: ExchangeConfig,
              group, info: Optional[dict] = None):
     """Process form: this rank is one pod of ``group`` (the mesh's ``pod``
-    group). params: the pod's tree; score_fn(params, batch) -> scalar
-    loss. Returns the merged params; ``info``, if given, receives the
-    weight row, the score matrix or sketches, and the gathered models."""
+    group). params: the pod's tree, plain tensors or DTensors on the pod's
+    (data, model) submesh, whose local shards are what is gathered and
+    merged (int8: one scale a whole leaf); score_fn(params, batch) ->
+    scalar loss. Returns the merged params; ``info``, if given, receives
+    the weight row, the score matrix or sketches, and the gathered models
+    (local shards)."""
     n, my_idx = dist.get_world_size(group), dist.get_rank(group)
     if cfg.policy == "self" or n == 1:
         return params
+    params_dt = params
+    params, lift = _shards(params_dt)
     if cfg.policy == "all" and cfg.scorer != "multikrum":
         # no scoring needed: one all-reduce, no gather of whole models
         def mean(p):
             s = p.to(F32, copy=True)
             dist.all_reduce(s, group=group)
             return (s * (1.0 / n)).to(p.dtype)
-        return tree.tree_map(mean, params)
+        return lift(tree.tree_map(mean, params))
 
-    def gather(p):
+    def gather(p, p_dt):
         if cfg.compression != "int8":
             return _all_gather(p, group)
-        q, s = _q8(p)
+        q, s = _q8(p_dt)      # a DTensor's scale: its whole leaf's amax
+        q, s = (q.to_local(), _full(s)) if pshard._is_dtensor(q) else (q, s)
         return _dq8(_all_gather(q, group),
                     _all_gather(s.reshape(1), group)
                     .reshape((n,) + (1,) * p.dim()), p.dtype)
 
-    gathered = tree.tree_map(gather, params)
+    gathered = tree.tree_map(gather, params, params_dt)
     score_mat = sketches = None
     if cfg.scorer == "multikrum":
-        sketches = _all_gather(_sketch(params, cfg.sketch_dim), group)
+        sketches = _all_gather(_sketch(params_dt, cfg.sketch_dim), group)
     else:
-        score_mat = _all_gather(_score_row(gathered, score_fn, score_batch),
-                                group)
+        with pshard.dtensor_context(params_dt):
+            row = _score_row(gathered,
+                             lambda p, b: _full(score_fn(lift(p), b)),
+                             score_batch)
+        score_mat = _all_gather(row, group)
     merged, w = exchange_gathered(gathered, my_idx, cfg, score_mat=score_mat,
                                   sketches=sketches)
     if info is not None:
         info.update(weights=w, scores=score_mat, sketches=sketches,
                     gathered=gathered)
-    return merged
+    return lift(merged)
 
 
 def exchange_stacked(stack, score_fn: Callable, score_batches,
@@ -311,21 +354,75 @@ def make_train_step(model: Model, lr: float = 0.01):
     the parameter dtype kept: ``(p.f32 - lr * g.f32).to(p.dtype)`` (not
     ``optim/local.py``'s float32 promotion). The gradient is
     ``torch.autograd.grad``, which frees each saved activation once the
-    backward has used it."""
+    backward has used it. DTensor params run under
+    ``pshard.dtensor_context`` and their gradients are pinned to their
+    placements. ``train_step(params, batch, info)`` puts the gradients in
+    ``info["grads"]``, if given."""
 
-    def train_step(params, batch):
+    def train_step(params, batch, info=None):
         paths, leaves = zip(*tree.leaves_with_paths(params))
         leaves = [p.detach().requires_grad_() for p in leaves]
-        loss, metrics = model.loss(tree.unflatten(list(paths), leaves), batch)
-        grads = torch.autograd.grad(loss, leaves, allow_unused=True,
-                                    materialize_grads=True)
-        new = [(p.detach().to(F32) - lr * g.to(F32)).to(p.dtype)
-               for p, g in zip(leaves, grads)]
+        with pshard.dtensor_context(leaves):
+            loss, metrics = model.loss(tree.unflatten(list(paths), leaves),
+                                       batch)
+            grads = torch.autograd.grad(loss, leaves, allow_unused=True,
+                                        materialize_grads=True)
+            # pin each gradient to its parameter's placements (the
+            # reference's constraint, exchange.py:224-230): under fsdp the
+            # Partial -> Shard redistribute is the reduce-scatter
+            grads = [_pin(g, p) for g, p in zip(grads, leaves)]
+            new = [(p.detach().to(F32) - lr * g.to(F32)).to(p.dtype)
+                   for p, g in zip(leaves, grads)]
+        if info is not None:
+            info["grads"] = tree.unflatten(list(paths), grads)
         del grads
         return (tree.unflatten(list(paths), new),
                 {k: v.detach() for k, v in metrics.items()})
 
     return train_step
+
+
+def _pin(g, p):
+    if not pshard._is_dtensor(p) or tuple(g.placements) == \
+            tuple(p.placements):
+        return g
+    return g.redistribute(p.device_mesh, p.placements)
+
+
+def _pod_block(x):
+    """A leaf stacked [P, ...] on a (pod, data, model) mesh, ``pod`` on
+    its leading dim -> this rank's pod's block as a DTensor on the (data,
+    model) submesh (no communication)."""
+    from torch.distributed.tensor import DTensor, Shard
+    mesh, names = x.device_mesh, tuple(x.device_mesh.mesh_dim_names)
+    pl = [Shard(p.dim - 1) if p.is_shard() else p
+          for n, p in zip(names, x.placements) if n != "pod"]
+    shape = tuple(x.shape[1:])
+    return DTensor.from_local(x.to_local()[0], pshard.submesh(mesh), pl,
+                              run_check=False, shape=shape,
+                              stride=_contiguous_stride(shape))
+
+
+def _pod_stack(d, mesh):
+    """Inverse of ``_pod_block``: a pod's DTensor on the submesh -> its
+    block of the [P, ...] stack on ``mesh``."""
+    from torch.distributed.tensor import DTensor, Shard
+    names = tuple(mesh.mesh_dim_names)
+    sub = iter(d.placements)
+    pl = [Shard(0) if n == "pod" else
+          (lambda p: Shard(p.dim + 1) if p.is_shard() else p)(next(sub))
+          for n in names]
+    shape = (mesh.size(names.index("pod")),) + tuple(d.shape)
+    return DTensor.from_local(d.to_local()[None], mesh, pl, run_check=False,
+                              shape=shape, stride=_contiguous_stride(shape))
+
+
+def _contiguous_stride(shape):
+    out, acc = [], 1
+    for s in reversed(shape):
+        out.append(acc)
+        acc *= s
+    return tuple(reversed(out))
 
 
 def make_unifyfl_round_step(model: Model, mesh, ex_cfg: ExchangeConfig,
@@ -371,7 +468,23 @@ def make_unifyfl_round_step(model: Model, mesh, ex_cfg: ExchangeConfig,
 
     group = mesh.get_group("pod")
 
+    def round_step_dtensor(params, batch, info=None):
+        """params, batch: [P, ...] DTensors on ``mesh``, ``pod`` on the
+        leading dim; each rank's pod trains and exchanges its block."""
+        blocks = tree.tree_map(_pod_block, params)
+        b = tree.tree_map(_pod_block, batch)
+        with pshard.use_mesh(mesh), pshard.manual_axes(("pod",)):
+            trained, metrics = train_step(blocks, b)
+            if info is not None:
+                info["trained"] = trained
+            merged = exchange(trained, score_fn, score_rows(b), ex_cfg,
+                              group, info)
+        return (tree.tree_map(lambda d: _pod_stack(d, mesh), merged),
+                _full(metrics["loss"])[None])
+
     def round_step(params_blk, batch_blk, info=None):
+        if pshard._is_dtensor(tree.leaves(params_blk)[0]):
+            return round_step_dtensor(params_blk, batch_blk, info)
         _one_block(params_blk)
         trained, losses = train_pods(params_blk, batch_blk)
         if info is not None:
@@ -399,18 +512,37 @@ def make_pod_serve_step(model: Model, mesh, kind: str):
     own."""
 
     def per_pod(params, step):
+        if pshard._is_dtensor(tree.leaves(params)[0]):
+            return per_pod_dtensor(params, step)
         if mesh is not None:
             _one_block(params)
         outs = [step(i) for i in range(int(tree.leaves(params)[0].shape[0]))]
         return (torch.stack([o[0] for o in outs]),
                 tree.tree_map(lambda *c: torch.stack(c), *[o[1] for o in outs]))
 
+    def per_pod_dtensor(params, step):
+        """Each rank serves its own pod's block on the (data, model)
+        submesh; the outputs restacked on ``mesh``."""
+        with pshard.use_mesh(mesh), pshard.manual_axes(("pod",)), \
+                pshard.dtensor_context(params):
+            logits, cache = step(None)
+        return (_pod_stack(logits, mesh),
+                tree.tree_map(lambda d: _pod_stack(d, mesh), cache))
+
+    def block(t, i):
+        """Pod ``i``'s block, or under DTensors (i None) this rank's; a
+        plain int (a decode position) is shared."""
+        if i is not None:
+            return _pod(t, i)
+        return tree.tree_map(
+            lambda x: _pod_block(x) if pshard._is_dtensor(x) else x, t)
+
     if kind == "decode":
         def serve_step(params, batch, cache):
             return per_pod(params, lambda i: model.decode_step(
-                _pod(params, i), _pod(batch, i), _pod(cache, i)))
+                block(params, i), block(batch, i), block(cache, i)))
     else:
         def serve_step(params, batch):
             return per_pod(params, lambda i: model.prefill(
-                _pod(params, i), _pod(batch, i)))
+                block(params, i), block(batch, i)))
     return serve_step

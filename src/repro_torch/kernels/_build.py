@@ -11,6 +11,12 @@ Each C entry point returns ``cudaGetLastError()`` after its launch; a
 ``Kernel`` raises when that is not 0 (a refused launch never runs, and a
 later synchronize would not report it) and counts the launches that went
 through, so a run can show which kernels its main path used.
+
+A ``FakeTensor`` has no memory to hand a kernel. The wrappers on the dry
+run's paths send fake operands through a ``torch.library`` op of their own
+instead: its fake implementation gives the outputs' shapes, and
+``FAKE_COSTS`` the FLOPs and bytes the launch would take, by the formulas
+of ``chip_smoke.bound``, for ``launch/opstats.py`` to count.
 """
 from __future__ import annotations
 
@@ -144,6 +150,9 @@ class Kernel:
 
 
 KERNELS: Dict[str, Kernel] = {}
+
+# "repro_torch::<op>" -> fn(args, outputs) -> (flops, bytes) of a launch
+FAKE_COSTS: Dict[str, object] = {}
 
 
 def register(name: str, symbol: str, argtypes: Sequence,

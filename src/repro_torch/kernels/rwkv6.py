@@ -30,13 +30,17 @@ same arithmetic in PyTorch, and the plain version is
 ``torch.func`` transforms alike; a call that takes no gradient skips it
 and launches the forward kernel directly. On the CPU, ``wkv6`` is the plain scan,
 which autograd differentiates as it stands; ``WKV6`` on CPU tensors runs
-the two plain versions, for the tests.
+the two plain versions, for the tests. Fake tensors (the dry run) go
+through ``wkv6_op`` / ``wkv6_backward_op``, ops whose fake
+implementations give the shapes and whose costs ``FAKE_COSTS`` holds.
 """
 from __future__ import annotations
 
 import ctypes
+from typing import Optional
 
 import torch
+from torch._subclasses.fake_tensor import FakeTensor as _FakeTensor
 
 from repro_torch.kernels import _build, ref
 
@@ -182,6 +186,8 @@ class WKV6(torch.autograd.Function):
 
     @staticmethod
     def forward(r, k, v, w, u, state):
+        if isinstance(r, _FakeTensor):
+            return wkv6_op(r, k, v, w, u, state)
         if r.device.type == "cpu":
             return ref.wkv6_naive(r, k, v, w, u, state)
         return forward(r, k, v, w, u, state)
@@ -197,6 +203,9 @@ class WKV6(torch.autograd.Function):
         needs = tuple(ctx.needs_input_grad)
         if dy is None:
             dy = torch.zeros_like(r)
+        if isinstance(r, _FakeTensor):
+            grads = wkv6_backward_op(r, k, v, w, u, state, dy, dstate)
+            return tuple(g if n else None for g, n in zip(grads, needs))
         if r.device.type == "cpu":
             grads = ref.wkv6_backward_naive(r, k, v, w, u, state, dy, dstate)
             return tuple(g if n else None for g, n in zip(grads, needs))
@@ -209,7 +218,13 @@ def wkv6(r, k, v, w, u, state):
     A CPU tensor takes the plain scan (autograd differentiates it); a CUDA
     tensor goes through ``WKV6``, the two kernels, where a gradient is
     being taken, and straight to the forward kernel where none is (a
-    prefill or an eval skips the Function's host cost)."""
+    prefill or an eval skips the Function's host cost). Fake tensors take
+    the same two routes through ``wkv6_op``."""
+    if isinstance(r, _FakeTensor):
+        if torch.is_grad_enabled() and any(
+                a.requires_grad for a in (r, k, v, w, u, state)):
+            return WKV6.apply(r, k, v, w, u, state)
+        return wkv6_op(r, k, v, w, u, state)
     if r.device.type == "cpu":
         return ref.wkv6_naive(r, k, v, w, u, state)
     if r.device.type != "cuda":
@@ -219,3 +234,67 @@ def wkv6(r, k, v, w, u, state):
             a.requires_grad for a in (r, k, v, w, u, state)):
         return WKV6.apply(r, k, v, w, u, state)
     return forward(r, k, v, w, u, state)
+
+
+# --------------------------------------------------------------------------- #
+# Ops for fake operands (the dry run) and their costs
+# --------------------------------------------------------------------------- #
+
+@torch.library.custom_op("repro_torch::wkv6", mutates_args=())
+def wkv6_op(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+            w: torch.Tensor, u: torch.Tensor,
+            state: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """The forward kernel as an op, for fake operands."""
+    _check(r, k, v, w, u, state)
+    return forward(r, k, v, w, u, state)
+
+
+@wkv6_op.register_fake
+def _(r, k, v, w, u, state):
+    return r.new_empty(r.shape), state.new_empty(state.shape,
+                                                 dtype=torch.float32)
+
+
+@torch.library.custom_op("repro_torch::wkv6_backward", mutates_args=())
+def wkv6_backward_op(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                     w: torch.Tensor, u: torch.Tensor, state: torch.Tensor,
+                     dy: torch.Tensor, dstate: Optional[torch.Tensor]
+                     ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor,
+                                torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The backward kernel as an op (every gradient), for fake
+    operands."""
+    return backward(r, k, v, w, u, state, dy, dstate)
+
+
+@wkv6_backward_op.register_fake
+def _(r, k, v, w, u, state, dy, dstate):
+    f32 = torch.float32
+    return (r.new_empty(r.shape), r.new_empty(r.shape), r.new_empty(r.shape),
+            r.new_empty(r.shape, dtype=f32), u.new_empty(u.shape, dtype=f32),
+            state.new_empty(state.shape, dtype=f32))
+
+
+def forward_cost(B: int, T: int, H: int, hs: int, e: int):
+    """(flops, bytes) of a forward launch (``chip_smoke.check_wkv6``):
+    ``(5 hs + 5)`` flops an element; r, k, v and y in e bytes, w in 4,
+    the two states in float32."""
+    n = B * T * H * hs
+    return (5.0 * hs + 5) * n, float(n * (4 * e + 4) + 2 * B * H * hs * hs * 4)
+
+
+def backward_cost(B: int, T: int, H: int, hs: int, e: int, given: bool):
+    """(flops, bytes) of a backward launch
+    (``chip_smoke.check_wkv6_backward``): ``10 hs^2`` flops a token and
+    head; ``given``: a final state's gradient read too."""
+    n = B * T * H * hs
+    states = B * H * hs * hs * 4
+    nbytes = (n * (4 * e + 4) + H * hs * 4 + states * (1 + given)
+              + n * (3 * e + 4) + H * hs * 4 + states)
+    return 10.0 * hs * hs * B * T * H, float(nbytes)
+
+
+_build.FAKE_COSTS["repro_torch::wkv6"] = \
+    lambda args, out: forward_cost(*args[0].shape, args[0].element_size())
+_build.FAKE_COSTS["repro_torch::wkv6_backward"] = \
+    lambda args, out: backward_cost(*args[0].shape, args[0].element_size(),
+                                    args[7] is not None)

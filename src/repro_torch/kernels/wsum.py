@@ -15,6 +15,7 @@ from __future__ import annotations
 import ctypes
 
 import torch
+from torch._subclasses.fake_tensor import FakeTensor as _FakeTensor
 
 from repro_torch.kernels import _build, ref
 
@@ -30,7 +31,10 @@ _KERNEL = _build.register(
 def weighted_sum(x, w):
     """x: [M, N] f32/bf16, row-strided; w: [M] on the card or the host
     -> [N] in x.dtype. The checks are written for a thin host path: at the
-    paper CNN's size the call costs more host time than device time."""
+    paper CNN's size the call costs more host time than device time. A
+    fake ``x`` goes through ``weighted_sum_op``."""
+    if isinstance(x, _FakeTensor):
+        return weighted_sum_op(x, w)
     if not x.is_cuda:
         if x.device.type == "cpu":
             return ref.weighted_sum(x, w)
@@ -59,3 +63,24 @@ def weighted_sum(x, w):
     _KERNEL(x.data_ptr(), ld, w_dev, w_host, out.data_ptr(), M, N,
             dtype is torch.bfloat16, _build.stream_of(x))
     return out
+
+
+@torch.library.custom_op("repro_torch::weighted_sum", mutates_args=())
+def weighted_sum_op(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """``weighted_sum`` as an op, for fake operands (the dry run)."""
+    return weighted_sum(x, w)
+
+
+@weighted_sum_op.register_fake
+def _(x, w):
+    return x.new_empty((x.shape[1],))
+
+
+def cost(M: int, N: int, itemsize: int):
+    """(flops, bytes) of one launch: ``2 M N`` and ``(M + 1) N`` elements
+    (``chip_smoke.bound``)."""
+    return 2.0 * M * N, float((M + 1) * N * itemsize)
+
+
+_build.FAKE_COSTS["repro_torch::weighted_sum"] = \
+    lambda args, out: cost(*args[0].shape, args[0].element_size())

@@ -77,15 +77,22 @@ def encode(params, frames, cfg: ModelConfig):
     non-causal self-attention."""
     B, S, _ = frames.shape
     x = frames.to(L.dtype_of(cfg.compute_dtype))
+    x = pshard.constrain(x, pshard.BATCH, None, None)
     positions = _positions(B, S, x.device)
-    for i in range(cfg.n_enc_layers):
-        lp = L.layer_at(params["enc_layers"], i)
+
+    def body(x, lp):
         h, _ = L.attention_block(
             lp["attn"], L.rms_norm(x, lp["attn_norm"], cfg.norm_eps), cfg,
             positions=positions, causal=False)
         x = x + h
-        x = x + L.mlp_block(lp["mlp"],
-                            L.rms_norm(x, lp["mlp_norm"], cfg.norm_eps), cfg)
+        return x + L.mlp_block(lp["mlp"],
+                               L.rms_norm(x, lp["mlp_norm"], cfg.norm_eps),
+                               cfg)
+
+    # the reference rematerialises its scan bodies under 'full' only
+    body_fn = L.remat(body, "full" if cfg.remat == "full" else "none")
+    for i in range(cfg.n_enc_layers):
+        x = body_fn(x, L.layer_at(params["enc_layers"], i))
     return L.rms_norm(x, params["enc_norm"], cfg.norm_eps)
 
 
@@ -95,15 +102,19 @@ def _cross_attention(p, x, memory, cfg: ModelConfig):
     mem = memory.to(x.dtype)
     q, k, v = L._heads(x, p["wq"]), L._heads(mem, p["wk"]), \
         L._heads(mem, p["wv"])
-    out = L.chunked_attention(q, k, v, q_offset=0, window=None, causal=False)
-    return L._out_proj(out, p["wo"])
+    q = pshard.constrain(q, pshard.BATCH, None, "model", None)
+    out = L._by_heads(L.chunked_attention, q, k, v, q_offset=0, window=None,
+                      causal=False)
+    return pshard.constrain(L._out_proj(out, p["wo"]), pshard.BATCH, None,
+                            None)
 
 
 def _cross_decode(p, x, mem_k, mem_v, cfg: ModelConfig):
     """One token's cross-attention over every slot of the projected memory
     (a padded memory's zero slots included, as the reference attends)."""
     q = L._heads(x, p["wq"])
-    out = L.decode_attention(q, mem_k, mem_v, n_valid=mem_k.shape[1])
+    out = L._by_heads(L.decode_attention, q, mem_k, mem_v,
+                      n_valid=mem_k.shape[1])
     return L._out_proj(out, p["wo"])
 
 
@@ -116,9 +127,9 @@ def decode_stack(params, tokens, memory, cfg: ModelConfig, *,
     x = L.embed(params["embed"], tokens, cfg)
     positions = _positions(B, S, x.device)
     ks, vs = [], []
-    for i in range(cfg.n_layers):
-        lp = L.layer_at(params["dec_layers"], i)
-        h, (k, v) = L.attention_block(
+
+    def body(x, lp):
+        h, kv = L.attention_block(
             lp["self_attn"], L.rms_norm(x, lp["self_norm"], cfg.norm_eps),
             cfg, positions=positions)
         x = x + h
@@ -127,6 +138,11 @@ def decode_stack(params, tokens, memory, cfg: ModelConfig, *,
             memory, cfg)
         x = x + L.mlp_block(lp["mlp"],
                             L.rms_norm(x, lp["mlp_norm"], cfg.norm_eps), cfg)
+        return x, kv
+
+    body_fn = L.remat(body, "full" if cfg.remat == "full" else "none")
+    for i in range(cfg.n_layers):
+        x, (k, v) = body_fn(x, L.layer_at(params["dec_layers"], i))
         if collect_kv:
             ks.append(k)
             vs.append(v)

@@ -141,14 +141,16 @@ def rec_block(p, x, cfg: ModelConfig, st):
     """st: {conv [B, 3, D], h [B, D]}. Returns (out, new st)."""
     xn = L.rms_norm(x, p["norm"], cfg.norm_eps)
     gate = F.gelu(xn @ p["wg"].to(x.dtype), approximate="tanh")
-    z, conv_tail = _conv1d(xn @ p["wi"].to(x.dtype), p["conv_w"],
-                           st["conv"])
+    z = pshard.constrain(xn @ p["wi"].to(x.dtype), pshard.BATCH, None,
+                         "model")
+    z, conv_tail = _conv1d(z, p["conv_w"], st["conv"])
     r = torch.sigmoid((xn @ p["lru_wa"].to(x.dtype)).to(torch.float32)
                       + p["lru_ba"].to(torch.float32))
     i = torch.sigmoid((xn @ p["lru_wx"].to(x.dtype)).to(torch.float32)
                       + p["lru_bx"].to(torch.float32))
     h, h_last = rg_lru(z.to(torch.float32), r, i, p["lru_lam"], st["h"])
     out = (gate * h.to(gate.dtype)) @ p["wo"].to(x.dtype)
+    out = pshard.constrain(out, pshard.BATCH, None, None)
     return out, {"conv": conv_tail, "h": h_last}
 
 
@@ -232,11 +234,16 @@ def forward(params, tokens, cfg: ModelConfig, *, collect_kv: bool = False):
     positions = torch.arange(S, dtype=torch.int32,
                              device=x.device).expand(B, S)
     sts, ks, vs = [], [], []
+    # the reference rematerialises its scan bodies under 'full' only
+    mode = "full" if cfg.remat == "full" else "none"
+    group = L.remat(lambda x, gp, st: _group_fwd(cfg, x, gp, positions, st),
+                    mode)
+    rec_sub = L.remat(lambda x, rp, mp, st: _rec_sub(cfg, x, rp, mp, st),
+                      mode)
     for g in range(n_groups):
         st = {"rec1": L.layer_at(cache["rec1"], g),
               "rec2": L.layer_at(cache["rec2"], g)}
-        x, st, (k, v) = _group_fwd(cfg, x, L.layer_at(params["groups"], g),
-                                   positions, st)
+        x, st, (k, v) = group(x, L.layer_at(params["groups"], g), st)
         sts.append(st)
         ks.append(k)
         vs.append(v)
@@ -246,15 +253,15 @@ def forward(params, tokens, cfg: ModelConfig, *, collect_kv: bool = False):
         k, v = torch.stack(ks), torch.stack(vs)
         W = L.cache_width(cfg, S)
         if W < S:  # rolling window: keep the last W keys in slot order
-            k = torch.roll(k[:, :, S - W:], shifts=(S - W) % W, dims=2)
-            v = torch.roll(v[:, :, S - W:], shifts=(S - W) % W, dims=2)
+            k = L.roll_slots(k[:, :, S - W:], (S - W) % W, dim=2)
+            v = L.roll_slots(v[:, :, S - W:], (S - W) % W, dim=2)
         cache["k"], cache["v"] = k, v
     if tail:
         tst = []
         for t in range(tail):
             tp = L.layer_at(params["tail"], t)
-            x, st = _rec_sub(cfg, x, tp["rec"], tp["mlp"],
-                             L.layer_at(cache["tail"], t))
+            x, st = rec_sub(x, tp["rec"], tp["mlp"],
+                            L.layer_at(cache["tail"], t))
             tst.append(st)
         cache["tail"] = _stack(tst)
     x = L.rms_norm(x, params["final_norm"], cfg.norm_eps)

@@ -80,13 +80,45 @@ def wkv(r, k, v, w, u, state):
     """r, k, v, w: [B, T, H, hs]; u: [H, hs]; state: [B, H, hs, hs] f32.
     On the card the ``WKV6`` Function (the ``wkv6`` kernel forward, the
     ``wkv6_backward`` kernel backward); on the CPU the token scan, which
-    autograd differentiates."""
+    autograd differentiates. DTensors go through ``_wkv_sharded``."""
+    if pshard._is_dtensor(r):
+        return _wkv_sharded(ops.wkv6, r, k, v, w, u, state)
     return ops.wkv6(r, k, v, w, u, state)
+
+
+def _wkv_sharded(fn, r, k, v, w, u, state):
+    """``fn`` (``wkv`` on [B, T, H, hs] or ``wkv_step`` on [B, H, hs]) on
+    DTensors: every (batch, head) block is independent, so a ``local_map``
+    body runs it on each rank's block (batch over the batch axes, heads
+    over ``model``, as the reference constrains r and k). DTensor has no
+    rule for the kernel's op, nor for the step's products once the heads
+    are sharded; u's gradient is partial over the batch axes."""
+    from torch.distributed.tensor import Replicate, Shard
+    from torch.distributed.tensor.experimental import local_map
+    mesh = r.device_mesh
+    h = r.dim() - 2                               # the head dim
+    spec = (pshard.BATCH,) + (None,) * (h - 1) + ("model", None)
+    r, k, v, w = (pshard.place(a, mesh, *spec) for a in (r, k, v, w))
+    # u and the state follow r's batch and head sharding
+    pl_a = tuple(r.placements)
+    pl_u = tuple(Shard(0) if p.is_shard(h) else Replicate() for p in pl_a)
+    pl_s = tuple(Shard(1) if p.is_shard(h) else p for p in pl_a)
+    u, state = pshard.place_as(u, mesh, pl_u), \
+        pshard.place_as(state, mesh, pl_s)
+    batch_dims = {j for j, p in enumerate(pl_a) if p.is_shard(0)}
+    fn = local_map(fn, out_placements=(pl_a, pl_s),
+                   in_placements=(pl_a,) * 4 + (pl_u, pl_s),
+                   in_grad_placements=(pl_a,) * 4 + (
+                       pshard.grad_placements(pl_u, batch_dims), pl_s),
+                   device_mesh=mesh)
+    return fn(r, k, v, w, u, state)
 
 
 def wkv_step(r, k, v, w, u, state):
     """Single-token recurrence. r, k, v, w: [B, H, hs]; state: [B, H, hs,
     hs] f32."""
+    if pshard._is_dtensor(r):
+        return _wkv_sharded(wkv_step, r, k, v, w, u, state)
     rf, kf, vf, wf = (a.to(torch.float32) for a in (r, k, v, w))
     kv = torch.einsum("bhk,bhv->bhkv", kf, vf)
     uf = u.to(torch.float32)[None, :, :, None]
@@ -150,6 +182,8 @@ def time_mix(p, x, cfg: ModelConfig, x_prev, state):
     w = torch.exp(-torch.exp(p["decay_base"].to(torch.float32) +
                              dw.to(torch.float32)))   # in (0, 1), [B,S,D]
     rh, kh, vh, wh = (a.reshape(B, S, H, hs) for a in (r, k, v, w))
+    rh = pshard.constrain(rh, pshard.BATCH, None, "model", None)
+    kh = pshard.constrain(kh, pshard.BATCH, None, "model", None)
     if S == 1:
         y, state = wkv_step(rh[:, 0], kh[:, 0], vh[:, 0], wh[:, 0],
                             p["bonus_u"], state)
@@ -163,7 +197,7 @@ def time_mix(p, x, cfg: ModelConfig, x_prev, state):
     yf = (yf - mu) * torch.rsqrt(var + GN_EPS)
     y = (yf.reshape(B, S, D) * p["gn_scale"].to(torch.float32)).to(x.dtype)
     out = (y * g) @ p["wo"].to(x.dtype)
-    return out, x[:, -1:], state
+    return pshard.constrain(out, pshard.BATCH, None, None), x[:, -1:], state
 
 
 def channel_mix(p, x, x_prev):
@@ -172,9 +206,11 @@ def channel_mix(p, x, x_prev):
     xk = x + delta * p["cmix_mu"][0].to(x.dtype)
     xr = x + delta * p["cmix_mu"][1].to(x.dtype)
     r = torch.sigmoid(xr @ p["cm_wr"].to(x.dtype))
-    k = torch.square(F.relu(xk @ p["cm_wk"].to(x.dtype)))
+    k = pshard.constrain(xk @ p["cm_wk"].to(x.dtype), pshard.BATCH, None,
+                         "model")
+    k = torch.square(F.relu(k))
     v = k @ p["cm_wv"].to(x.dtype)
-    return r * v, x[:, -1:]
+    return pshard.constrain(r * v, pshard.BATCH, None, None), x[:, -1:]
 
 
 def _layer(cfg, x, lp, st):
@@ -214,8 +250,11 @@ def forward(params, tokens, cfg: ModelConfig, state=None):
     if state is None:
         state = init_state(cfg, B, x.device)
     new = {name: [] for name in state}
+    # the reference rematerialises its scan body under 'full' only
+    layer = L.remat(lambda x, lp, st: _layer(cfg, x, lp, st),
+                    "full" if cfg.remat == "full" else "none")
     for i, lp in enumerate(L.unstack_layers(params["layers"], cfg.n_layers)):
-        x, st = _layer(cfg, x, lp, {name: s[i] for name, s in state.items()})
+        x, st = layer(x, lp, {name: s[i] for name, s in state.items()})
         for name in new:
             new[name].append(st[name])
     x = L.rms_norm(x, params["final_norm"], cfg.norm_eps)

@@ -4,7 +4,8 @@ Twin of ``repro.models.transformer``.
 Params keep the reference's layout: the per-layer leaves are stacked
 ``[L, ...]`` as ``jax.vmap`` makes them, so a reference init installs leaf
 for leaf (``repro_torch.interop``). The forward is a Python loop over the
-layers (no scan, no rematerialisation). The KV cache is ``{"k", "v"}``, each ``[L, B, W, KV, hd]`` in the
+layers (no scan), each layer's body rematerialised by ``cfg.remat``
+(``layers.remat``) as the reference's scan body is. The KV cache is ``{"k", "v"}``, each ``[L, B, W, KV, hd]`` in the
 compute dtype; ``decode_step`` writes the new token's keys into it in place
 and returns it. A ``moe`` layer has ``"moe"`` (``models/moe.py``, its
 experts stacked ``[L, E, ...]``) in place of ``"mlp"``; its load-balance
@@ -64,13 +65,19 @@ def forward(params, tokens, cfg: ModelConfig, *, collect_kv: bool = False):
                              device=x.device).expand(B, S)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     ks, vs = [], []
-    for lp in L.unstack_layers(params["layers"], cfg.n_layers):
-        h, (k, v) = L.attention_block(
+
+    def body(x, lp):
+        h, kv = L.attention_block(
             lp["attn"], L.rms_norm(x, lp["attn_norm"], cfg.norm_eps), cfg,
             positions=positions)
         x = x + h
         h, aux_i = _ffn(lp, x, cfg)
-        x = x + h
+        x = pshard.constrain(x + h, pshard.BATCH, None, None)
+        return x, aux_i, kv
+
+    body_fn = L.remat(body, cfg.remat)
+    for lp in L.unstack_layers(params["layers"], cfg.n_layers):
+        x, aux_i, (k, v) = body_fn(x, lp)
         if aux_i is not None:
             aux = aux + aux_i
         if collect_kv:
@@ -125,8 +132,8 @@ def prefill(params, tokens, cfg: ModelConfig):
     S = tokens.shape[1]
     W = L.cache_width(cfg, S)
     if W < S:  # rolling window cache: keep last W keys in rolled slot order
-        k = torch.roll(k[:, :, S - W:], shifts=(S - W) % W, dims=2)
-        v = torch.roll(v[:, :, S - W:], shifts=(S - W) % W, dims=2)
+        k = L.roll_slots(k[:, :, S - W:], (S - W) % W, dim=2)
+        v = L.roll_slots(v[:, :, S - W:], (S - W) % W, dim=2)
     return logits, {"k": k, "v": v}
 
 

@@ -37,7 +37,8 @@ GUARD = textwrap.dedent("""
                  "repro_torch.optim.schedules", "repro_torch.launch.train",
                  "repro_torch.checkpoint", "repro_torch.checkpoint.checkpoint",
                  "repro_torch.pshard", "repro_torch.launch.mesh",
-                 "repro_torch.core.exchange"):
+                 "repro_torch.core.exchange", "repro_torch.launch.specs",
+                 "repro_torch.launch.opstats", "repro_torch.launch.dryrun"):
         assert must in names, must
     for name in names:
         importlib.import_module(name)
