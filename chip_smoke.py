@@ -26,7 +26,8 @@ Phases, in order; any failure exits non-zero and prints no result:
      kernels line's rows) and at the whole payload (the padded rows of
      earlier PRs), each failing on a second kernel launch a call;
      ``quantize`` and ``wsum_q8`` likewise through ``ops`` at n = 62,006
-     (``ops.quantize`` pads with ``F.pad`` first); then, all
+     (neither pads or slices: the kernels take the caller's tensors and
+     write the wire padding, or only the n columns kept, themselves); then, all
      timings done, each main-shape row's device time a launch from
      ``torch.profiler`` (which leaves a cost on every later launch: the
      ``launch-rate`` line times the int8 ops calls before the first
@@ -436,10 +437,10 @@ def one_kernel_a_call(name: str, call, kernel: str) -> dict:
 
 
 def ops_call_profile(name: str, call, kernel: str) -> dict:
-    """Device time of an ``ops`` call that may launch PyTorch's own kernels
-    beside ours (``ops.quantize`` pads with ``F.pad``): the device time a
-    call in all, and ``kernel``'s own a launch; fails unless ``kernel``
-    runs exactly once a call."""
+    """Device time of a call that may launch PyTorch's own kernels beside
+    ours (``weighted_sum`` above ``wsum.MAX_HOST_M`` copies its host
+    weights to the card): the device time a call in all, and ``kernel``'s
+    own a launch; fails unless ``kernel`` runs exactly once a call."""
     extra = device_time(call, expect={kernel: 1})
     own = {k: v for k, v in extra["by_kernel"].items() if k.startswith(kernel)}
     if [v["launches_per_call"] for v in own.values()] != [1.0]:
@@ -585,23 +586,29 @@ def check_kernels(shape: str, gen, iters: int):
     row("quantize", 0.0, ts["kernel"], ts["plain"],
         N * 4 + N + N // 1024 * 4, path=large, N=N, **extra)
     if not large:
-        # the main path's call (wire.encode_vec): ops.quantize pads the
-        # n = 62,006 floats of a flattened model to the 131,072 of the wire
-        # payload (F.pad), then launches the kernel
+        # the main path's call (wire.encode_vec): ops.quantize hands the
+        # kernel the n = 62,006 floats of a flattened model, and the kernel
+        # writes the 131,072 codes of the wire payload, the zero padding's
+        # own included; also from a 4-byte offset (the x[1:] view)
         xm = xq[:MAIN_N].clone()
         call = lambda xm=xm: ops.quantize(xm)
         plain = lambda xm=xm: ref.quantize_int8(F.pad(xm, (0, N - MAIN_N)))
-        (q, s, n), (q0, s0) = launched_once("quantize", call), plain()
-        torch.cuda.synchronize()
-        if not (n == MAIN_N and torch.equal(q, q0) and torch.equal(s, s0)):
-            fail("quantize through ops at n=62,006: codes or scales differ "
-                 "from the plain version")
+        for xv in (xm, xq[1:MAIN_N + 1]):
+            (q, s, n) = launched_once("quantize", lambda: ops.quantize(xv))
+            q0, s0 = ref.quantize_int8(F.pad(xv, (0, N - MAIN_N)))
+            torch.cuda.synchronize()
+            if not (n == MAIN_N and torch.equal(q, q0)
+                    and torch.equal(s, s0)):
+                fail("quantize through ops at n=62,006: codes or scales "
+                     "differ from the plain version on the zero-padded "
+                     f"input (base {xv.data_ptr() % 16} bytes off 16)")
         ts = timed({"kernel": call, "plain": plain}, iters)
         row("quantize", 0.0, ts["kernel"], ts["plain"],
             MAIN_N * 4 + N + N // 1024 * 4, N=N, n=MAIN_N,
-            check="bit-exact codes and scales; through ops (F.pad, then "
-                  "one quantize_kernel a call)",
-            later=lambda call=call: ops_call_profile(
+            check="bit-exact codes and scales of the zero-padded input, "
+                  "also from a 4-byte offset; through ops: no F.pad, one "
+                  "quantize_kernel a call and no other kernel",
+            later=lambda call=call: one_kernel_a_call(
                 "quantize through ops", call, "quantize_kernel"))
 
     # dequantize: K payloads in one launch (scoring ingest, K=2; K=8 large)
@@ -647,20 +654,21 @@ def check_kernels(shape: str, gen, iters: int):
                 library_ms=ts["library"], library_n=N, path=path, K=k, N=N,
                 n=n, **extra)
 
-    # wsum_q8: the fused cross-silo merge of M int8 peers
+    # wsum_q8: the fused cross-silo merge of M int8 peers; the plain
+    # version is the kernel's FMA chain emulated (in 2^27-column windows)
     M = K
     wq = torch.rand((M,), generator=gen, device="cuda")
-    got, want = q8agg.wsum_q8(qk, sk, wq), ref.wsum_q8(qk, sk, wq)
+    plain = lambda qk=qk, sk=sk, wq=wq, n=N: wsum_q8_windows(qk, sk, wq, n)
+    got, want = q8agg.wsum_q8(qk, sk, wq), plain()
     torch.cuda.synchronize()
     err = float((got - want).abs().max())
-    # |q| <= 127: the sum is bounded by 127 * max over tiles of sum_m w s
-    scale = 127.0 * float((wq[:, None] * sk).sum(0).max())
-    if not err <= M * 2.0 ** -22 * scale:
-        fail(f"wsum_q8 {shape}: max_abs_err {err} (scale {scale})")
+    if not torch.equal(got, want):
+        fail(f"wsum_q8 {shape}: not the FMA chain (max_abs_err {err})")
     del got, want
+    # the plain version emulates the chain in float64: one call a round
     ts = timed({"kernel": lambda: q8agg.wsum_q8(qk, sk, wq),
-                "plain": lambda: ref.wsum_q8(qk, sk, wq)}, iters)
-    tol = f"abs err <= M*2^-22*127*max sum w s = {M * 2.0 ** -22 * scale:.3e}"
+                "plain": plain}, {"kernel": iters, "plain": 1})
+    tol = "bit-exact with the FMA chain (ref.weighted_sum_ordered)"
     extra = {} if large else {"later": lambda qk=qk, sk=sk, wq=wq:
                               one_kernel_a_call(
                                   "wsum_q8", lambda: q8agg.wsum_q8(qk, sk, wq),
@@ -670,22 +678,26 @@ def check_kernels(shape: str, gen, iters: int):
         path=large, M=M, N=N, **extra)
     if not large:
         # the main path's call (SiloAggregator.apply_cross_silo_vec): the
-        # merge of M int8 peers through ops, the n = 62,006 columns kept
+        # merge of M int8 peers through ops, only the n = 62,006 columns
+        # kept written, only the 61 tiles they lie in read
         call = lambda qk=qk, sk=sk, wq=wq: ops.weighted_sum_q8(qk, sk, wq,
                                                                MAIN_N)
         plain = lambda qk=qk, sk=sk, wq=wq: ref.wsum_q8(qk, sk, wq)[:MAIN_N]
         got, want = launched_once("wsum_q8", call), plain()
         torch.cuda.synchronize()
         err = float((got - want).abs().max())
-        if got.shape != (MAIN_N,) or not err <= M * 2.0 ** -22 * scale:
+        if got.shape != (MAIN_N,) or not torch.equal(got, want):
             fail(f"wsum_q8 through ops at n=62,006: shape "
                  f"{tuple(got.shape)}, max_abs_err {err}")
         del got, want
         ts = timed({"kernel": call, "plain": plain}, iters)
+        tiles = -(-MAIN_N // 1024)
         row("wsum_q8", err, ts["kernel"], ts["plain"],
-            M * N + M * N // 1024 * 4 + MAIN_N * 4, 2.0 * M * N,
-            check=tol + "; through ops", M=M, N=N, n=MAIN_N,
-            later=lambda call=call: ops_call_profile(
+            M * MAIN_N + M * tiles * 4 + MAIN_N * 4, 2.0 * M * MAIN_N,
+            check=tol + "; through ops: no padding or slice, one "
+                  "wsum_q8_kernel a call and no other kernel",
+            M=M, N=N, n=MAIN_N,
+            later=lambda call=call: one_kernel_a_call(
                 "wsum_q8 through ops", call, "wsum_q8_kernel"))
     del qk, sk
     torch.cuda.empty_cache()
@@ -793,10 +805,15 @@ def chunks(n: int, size: int = 1 << 27):
 
 
 def model_width_row(name: str, max_err: float, ts: dict, nbytes: float,
-                    flops: float = 0.0, check: str = "", **dims) -> dict:
+                    flops: float = 0.0, check: str = "", ops_bytes=None,
+                    **dims) -> dict:
     """Print one row of ``check_model_width``: times (CUDA events), the
-    bound and the share of it the kernel reaches."""
+    bound and the share of it the kernel reaches; with ``ops_bytes`` also
+    the bound of the ``ops`` call and the share of it that call reaches."""
     b_ms, b_by = bound(nbytes, flops)
+    if ops_bytes is not None:
+        ops_b = bound(ops_bytes, flops)[0]
+        dims.update(ops_bound_ms=ops_b, ops_share_of_bound=ops_b / ts["ops"])
     line = {"phase": "kernels-at-model-width", "name": name, **dims,
             "max_abs_err": max_err, "check": check, "ms": ts["kernel"],
             "plain_ms": ts["plain"], "library_ms": ts.get("library"),
@@ -809,9 +826,9 @@ def model_width_row(name: str, max_err: float, ts: dict, nbytes: float,
 
 
 def wsum_q8_windows(q, s, w, n: int):
-    """``ref.wsum_q8`` of [M, Np] payloads, 2^27 columns at a time: at
-    M = 3 and the width of ``qwen3-1.7b`` its einsum over the whole payload
-    (one cuBLAS SGEMM) fails with CUBLAS_STATUS_EXECUTION_FAILED."""
+    """``ref.wsum_q8`` of [M, Np] payloads, the first n columns, 2^27 at a
+    time: its float64 emulation of the FMA chain over a whole payload would
+    not fit beside the operands."""
     from repro_torch.kernels import ref
     return torch.cat([ref.wsum_q8(q[:, a:-(-b // 1024) * 1024],
                                   s[:, a // 1024:-(-b // 1024)], w)[:b - a]
@@ -827,11 +844,13 @@ def check_model_width(gen, iters: int = 3) -> list:
     on its largest leaf, the 153,600 x 2,048 embedding (the vocabulary
     padded to a multiple of 2,048): to its tolerance and
     bit for bit against the kernel's FMA order; ``quantize`` (each model's
-    encode, through ``ops``: ``F.pad``, then the kernel) bit for bit;
+    encode, through ``ops``: the kernel on the N floats, writing the
+    padding itself) bit for bit against the zero-padded input;
     ``dequantize_batch`` at K = 2 (the scoring ingest: a [2, N] output of
     3.45e9 elements, past 2^31) bit for bit, row by row; ``wsum_q8`` of the
     three payloads (the cross-silo merge) bit for bit against its FMA order,
-    in windows of 2^27. Every element is compared."""
+    in windows of 2^27, beside the ``torch.stack`` of the payloads that
+    precedes it on the main path. Every element is compared."""
     from repro_torch.configs import get_config
     from repro_torch.kernels import ops, quant, ref
     from repro_torch.models import build_model
@@ -883,7 +902,8 @@ def check_model_width(gen, iters: int = 3) -> list:
         torch.cuda.empty_cache()
     del emb
 
-    # quantize: each model's int8 encode, through ops (F.pad to Np first)
+    # quantize: each model's int8 encode, through ops (the kernel reads the
+    # N floats and writes the Np codes, its zero padding's own included)
     qs = []
     for i in range(3):
         xi = x[i] if i < 2 else ops.flatten_pytree(init(2))[0]
@@ -902,8 +922,11 @@ def check_model_width(gen, iters: int = 3) -> list:
                         "ops": lambda: ops.quantize(xi)}, iters, 3)
             rows.append(model_width_row(
                 "quantize", 0.0, ts, Np * 4 + Np + Np // 1024 * 4,
-                check="bit-exact codes and scales (ops: F.pad, then the "
-                      "kernel; ms is the kernel on the padded operand)",
+                ops_bytes=N * 4 + Np + Np // 1024 * 4,
+                check="bit-exact codes and scales of the zero-padded "
+                      "input; ms is the kernel on that padded operand, "
+                      "ops_ms the main path's call on the N floats (no "
+                      "F.pad: the kernel writes the padding)",
                 N=Np, n=N))
             del xp
         del xi
@@ -931,38 +954,35 @@ def check_model_width(gen, iters: int = 3) -> list:
     del qk, sk
     torch.cuda.empty_cache()
 
-    # wsum_q8: the cross-silo merge of three payloads
+    # wsum_q8: the cross-silo merge of three payloads, beside the
+    # torch.stack of the peers' payloads that SiloAggregator.
+    # apply_cross_silo_vec makes before it (timed on the rows of q3)
     q3 = torch.stack([q for q, _ in qs])
     s3 = torch.stack([s for _, s in qs])
     del qs
     w3 = torch.rand((3,), generator=gen, device="cuda")
     got = ops.weighted_sum_q8(q3, s3, w3, N)
-    fw = w3[:, None] * s3             # the kernel's w_m s_m, rounded once
-    scale = 127.0 * float(fw.sum(0).max())
     for a, b in chunks(N):            # a: a multiple of 1024
-        t0, t1 = a // 1024, -(-b // 1024)
-        want = ref.weighted_sum_ordered(
-            q3[:, a:t1 * 1024].float(),
-            fw[:, t0:t1].repeat_interleave(1024, 1))
-        if not torch.equal(got[a:b], want[:b - a]):
+        if not torch.equal(got[a:b], wsum_q8_windows(
+                q3[:, a:], s3[:, a // 1024:], w3, b - a)):
             fail(f"wsum_q8 at model width: not the kernel's FMA chain in "
                  f"[{a}, {b})")
-    del fw
-    err = float((got - wsum_q8_windows(q3, s3, w3, N)).abs().max())
-    tol = 3 * 2.0 ** -22 * scale
-    if not err <= tol:
-        fail(f"wsum_q8 at model width: max_abs_err {err} > {tol}")
     del got
     torch.cuda.empty_cache()
     ts = timed({"kernel": lambda: ops.weighted_sum_q8(q3, s3, w3, N),
-                "plain": lambda: wsum_q8_windows(q3, s3, w3, N)}, iters, 3)
+                "plain": lambda: wsum_q8_windows(q3, s3, w3, N),
+                "stack": lambda: (torch.stack(list(q3)),
+                                  torch.stack(list(s3)))},
+               {"kernel": iters, "plain": 1, "stack": iters}, 3)
+    tiles = -(-N // 1024)
+    # the stack reads and writes the three payloads and their scales
+    stack_bound = bound(2 * (3 * Np + 3 * (Np // 1024) * 4))[0]
     rows.append(model_width_row(
-        "wsum_q8", err, ts, 3 * Np + 3 * (Np // 1024) * 4 + N * 4, 6.0 * N,
-        check=f"bit-exact with the kernel's FMA chain; abs err vs the plain "
-              f"version <= M*2^-22*127*max sum w s = {tol:.3e}; plain in "
-              "2^27-column windows (its einsum over the whole [3, N] fails "
-              "in cuBLAS: CUBLAS_STATUS_EXECUTION_FAILED)",
-        M=3, N=Np, n=N))
+        "wsum_q8", 0.0, ts, 3 * N + 3 * tiles * 4 + N * 4, 6.0 * N,
+        check="bit-exact with the kernel's FMA chain, the plain version "
+              "(its float64 emulation, ref.wsum_q8) in 2^27-column windows",
+        M=3, N=Np, n=N, stack_ms=ts["stack"], stack_bound_ms=stack_bound,
+        stack_share_of_bound=stack_bound / ts["stack"]))
     del q3, s3
     torch.cuda.empty_cache()
     return rows

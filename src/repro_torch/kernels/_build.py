@@ -184,18 +184,6 @@ def raw_stream(device: int) -> int:
     return torch._C._cuda_getCurrentRawStream(device)
 
 
-def ptr(t) -> int:
-    """Device pointer of a tensor the kernels read as 16-byte vectors.
-    (``weighted_sum``, ``gram_and_norms``, ``dequantize`` and
-    ``add_q8_delta`` pick their widths from the pointers and row strides,
-    so any tensor's own alignment does for their inputs.)"""
-    p = t.data_ptr()
-    if p % 16:
-        raise ValueError(f"kernel operand at {p:#x} is not 16-byte aligned "
-                         "(pass a fresh or padded tensor, not an offset view)")
-    return p
-
-
 GRAM_PART_BLOCKS = 1024   # partials a Gram scratch holds: above any grid
 
 # (device index, raw stream) -> (ticket int32 [1], zeroed once; partials)

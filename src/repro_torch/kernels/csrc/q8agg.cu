@@ -4,12 +4,26 @@
 // Replaces the Pallas kernel src/repro/kernels/q8agg.py:51 (wsum_q8, body
 // _wsum_kernel :39), the cross-silo merge of int8 peer models. The f32
 // [M, N] matrix of dequantized models is never built.
-// Bound: memory. It reads M*N int8 codes, M*N/1024 scales and writes N
-// floats: M*N + 4*M*N/1024 + 4*N bytes. One block owns one 1024-wide
-// quantization tile: it folds ws[m] = w[m] * s[m, tile] into shared memory
-// once (the same f32 product the reference forms), then each of 256 threads
-// streams 4 codes per model as one char4 and accumulates 4 outputs in
-// registers. Offsets are 64-bit: M*N reaches 2^31.
+// Bound: memory. For the n columns it writes it reads M*n int8 codes (in
+// whole 1024-tiles: the ceil(n / 1024) tiles those columns lie in), M
+// scales a tile, and writes n floats. It takes the caller's [M, Np]
+// payloads as they are (a stack or a view of one, with a row stride, at
+// any byte alignment) and writes [n], n <= Np, with no padding or slice
+// around it. A warp takes a chunk of 512 columns, which lies in one tile:
+// each lane loads 4 words of 4 codes a model (spaced 128 apart, every
+// warp-wide load one contiguous 128 bytes), all of a group's code loads
+// in flight before its first FMA (one template each for M = 1..3; above 3
+// groups of 3 models in turn, carrying the same accumulators: at N = 2^28
+// groups of 3 ran faster than of 4 or 8 at every M from 4 to 17, with
+// fewer registers, more warps an SM and fewer rows a warp reads at
+// once), folds
+// w[m] * s[m, tile] in registers (the same float32 product, rounded once,
+// that the reference forms), and writes its 16 outputs as four float4
+// streaming stores, only the last chunk masked. No shared memory and no
+// barrier; the grid is sized from the SM count and occupancy (stream.cuh).
+// Each output is acc = fmaf(w_m s_m, q_m, acc) for m = 0..M-1 from 0: the
+// reference's kernel (its dot over m, compiled) gives these bits.
+// Offsets are 64-bit: M*N reaches 2^31.
 //
 // add_q8_delta: out[n] = base[n] + q[n] * s[n / 1024], rounded once.
 // Replaces src/repro/kernels/q8agg.py:77 (add_q8_delta, body
@@ -54,44 +68,100 @@
 
 namespace {
 
-constexpr int kTile = 1024;
-constexpr int kThreads = kTile / 4;
+constexpr int kTile = stream::kTile;
+constexpr int kGroup = 3;   // wsum_q8: models whose codes a warp holds at once
 
-__global__ void wsum_q8_kernel(const int8_t* __restrict__ q,
-                               const float* __restrict__ scales,
-                               const float* __restrict__ w,
-                               float* __restrict__ out, int M, int64_t N) {
-  extern __shared__ float ws[];
-  const int64_t tile = blockIdx.x;
-  const int64_t tiles = N / kTile;
-  for (int m = threadIdx.x; m < M; m += blockDim.x)
-    ws[m] = w[m] * scales[(int64_t)m * tiles + tile];
-  __syncthreads();
-  const int64_t col = tile * kTile + 4 * threadIdx.x;
-  float a0 = 0.f, a1 = 0.f, a2 = 0.f, a3 = 0.f;
-  for (int m = 0; m < M; ++m) {
-    const char4 c = *reinterpret_cast<const char4*>(q + (int64_t)m * N + col);
-    const float f = ws[m];
-    a0 = fmaf(f, (float)c.x, a0);
-    a1 = fmaf(f, (float)c.y, a1);
-    a2 = fmaf(f, (float)c.z, a2);
-    a3 = fmaf(f, (float)c.w, a3);
+// q [M, >= n] codes (row stride ldq, rows of whole 1024-tiles, QA-byte
+// aligned: 4 or 1), scales [M, >= ceil(n / 1024)] (row stride lds), w [M]
+// -> out [n], 16-byte aligned. Warp w takes chunks w, w + warps, ... of
+// 512 columns. G models at a time: G = M (kGroups false, M <= kGroup) or
+// groups of kGroup (kGroups, M > kGroup), each group's loads before its
+// FMAs.
+template <int G, bool kGroups, int QA>
+__global__ void __launch_bounds__(stream::kMaxThreads)
+wsum_q8_kernel(const int8_t* __restrict__ q, int64_t ldq,
+               const float* __restrict__ scales, int64_t lds,
+               const float* __restrict__ w, int M,
+               float* __restrict__ out, int64_t n) {
+  using namespace stream;
+  constexpr int S = kWide;
+  constexpr int kChunk = S * kSpan;
+  const int models = kGroups ? M : G;
+  const int lane = threadIdx.x % 32;
+  const int64_t chunks = (n + kChunk - 1) / kChunk;
+  const int64_t warps = (int64_t)gridDim.x * blockDim.x / 32;
+  for (int64_t c = ((int64_t)blockIdx.x * blockDim.x + threadIdx.x) / 32;
+       c < chunks; c += warps) {
+    const int64_t c0 = c * kChunk;
+    const int64_t tile = c0 / kTile;
+    float acc[S][kVec];
+#pragma unroll
+    for (int k = 0; k < S; ++k)
+#pragma unroll
+      for (int j = 0; j < kVec; ++j) acc[k][j] = 0.f;
+    for (int m0 = 0; m0 < models; m0 += G) {
+      unsigned cw[G][S];
+      float f[G];
+#pragma unroll
+      for (int i = 0; i < G; ++i) {
+        if (kGroups && m0 + i >= models) continue;   // the same for the warp
+        const int64_t m = m0 + i;
+        const int8_t* qm = q + m * ldq + c0 + kVec * lane;
+#pragma unroll
+        for (int k = 0; k < S; ++k) cw[i][k] = load_codes<QA>(qm + k * kSpan);
+        f[i] = ld(w + m) * ld(scales + m * lds + tile);
+      }
+#pragma unroll
+      for (int i = 0; i < G; ++i) {
+        if (kGroups && m0 + i >= models) continue;
+#pragma unroll
+        for (int k = 0; k < S; ++k)
+#pragma unroll
+          for (int j = 0; j < kVec; ++j)
+            acc[k][j] = fmaf(f[i], code(cw[i][k], j), acc[k][j]);
+      }
+    }
+#pragma unroll
+    for (int k = 0; k < S; ++k) {
+      const int64_t e = c0 + k * kSpan + kVec * lane;
+      if (e + kVec <= n) {
+        st(reinterpret_cast<float4*>(out + e),
+           make_float4(acc[k][0], acc[k][1], acc[k][2], acc[k][3]));
+      } else {
+#pragma unroll
+        for (int j = 0; j < kVec; ++j)
+          if (e + j < n) out[e + j] = acc[k][j];
+      }
+    }
   }
-  *reinterpret_cast<float4*>(out + col) = make_float4(a0, a1, a2, a3);
 }
 
-// Four base floats at p, from an address aligned to BA bytes (16, 8, 4).
-template <int BA>
-__device__ __forceinline__ float4 load_base4(const float* p) {
-  if constexpr (BA == 16) {
-    return stream::ld(reinterpret_cast<const float4*>(p));
-  } else if constexpr (BA == 8) {
-    const float2 a = stream::ld(reinterpret_cast<const float2*>(p));
-    const float2 b = stream::ld(reinterpret_cast<const float2*>(p) + 1);
-    return make_float4(a.x, a.y, b.x, b.y);
-  } else {
-    return make_float4(stream::ld(p), stream::ld(p + 1), stream::ld(p + 2),
-                       stream::ld(p + 3));
+template <int G, bool kGroups, int QA>
+cudaError_t launch_wsum(const int8_t* q, int64_t ldq, const float* s,
+                        int64_t lds, const float* w, int M, float* out,
+                        int64_t n, cudaStream_t st) {
+  constexpr auto kernel = &wsum_q8_kernel<G, kGroups, QA>;
+  constexpr int kChunk = stream::kWide * stream::kSpan;
+  dim3 grid;
+  int threads;
+  stream::grid_for(reinterpret_cast<const void*>(kernel),
+                   (n + kChunk - 1) / kChunk * 32, 1, &grid, &threads);
+  return stream::launch(kernel, grid, threads, st, q, ldq, s, lds, w, M, out,
+                        n);
+}
+
+template <int QA>
+cudaError_t dispatch_wsum(const int8_t* q, int64_t ldq, const float* s,
+                          int64_t lds, const float* w, int M, float* out,
+                          int64_t n, cudaStream_t st) {
+  static_assert(kGroup == 3, "one template a model count up to kGroup");
+  switch (M) {
+    case 1: return launch_wsum<1, false, QA>(q, ldq, s, lds, w, M, out, n, st);
+    case 2: return launch_wsum<2, false, QA>(q, ldq, s, lds, w, M, out, n, st);
+    case 3: return launch_wsum<3, false, QA>(q, ldq, s, lds, w, M, out, n, st);
+    default:
+      return launch_wsum<kGroup, true, QA>(q, ldq, s, lds, w, M, out, n,
+                                           st);
   }
 }
 
@@ -121,7 +191,7 @@ add_q8_delta_kernel(const float* __restrict__ base,
       const int64_t e = c * kChunk + k * kSpan + kVec * lane;
       w[k] = stream::load_codes<QA>(q + e);
       if (e + kVec <= n) {
-        b[k] = load_base4<BA>(base + e);
+        b[k] = stream::ld4<BA>(base + e);
       } else {
         b[k] = make_float4(e < n ? stream::ld(base + e) : 0.f,
                            e + 1 < n ? stream::ld(base + e + 1) : 0.f,
@@ -174,11 +244,11 @@ template <int S>
 cudaError_t dispatch_add_delta_b(const float* base, const int8_t* q,
                                  const float* s, float* out, int64_t n,
                                  cudaStream_t st) {
-  const uintptr_t a = reinterpret_cast<uintptr_t>(base);
-  if (a % 16 == 0)
-    return dispatch_add_delta_q<S, 16>(base, q, s, out, n, st);
-  if (a % 8 == 0) return dispatch_add_delta_q<S, 8>(base, q, s, out, n, st);
-  return dispatch_add_delta_q<S, 4>(base, q, s, out, n, st);
+  switch (stream::float_align(base)) {
+    case 16: return dispatch_add_delta_q<S, 16>(base, q, s, out, n, st);
+    case 8: return dispatch_add_delta_q<S, 8>(base, q, s, out, n, st);
+    default: return dispatch_add_delta_q<S, 4>(base, q, s, out, n, st);
+  }
 }
 
 cudaError_t dispatch_add_delta(const float* base, const int8_t* q,
@@ -311,18 +381,35 @@ cudaError_t launch_gram(const int8_t* q, int64_t ld, const float* s,
 
 extern "C" {
 
-// q: [M, N] int8 (N % 1024 == 0); scales: [M, N / 1024] float32;
-// w: [M] float32 -> out: [N] float32.
-int repro_wsum_q8(const void* q, const void* scales, const void* w,
-                  void* out, int M, int64_t N, void* stream) {
-  const int64_t tiles = N / kTile;
-  if (tiles > 0) {
-    wsum_q8_kernel<<<(unsigned)tiles, kThreads, (size_t)M * sizeof(float),
-                     static_cast<cudaStream_t>(stream)>>>(
-        static_cast<const int8_t*>(q), static_cast<const float*>(scales),
-        static_cast<const float*>(w), static_cast<float*>(out), M, N);
-  }
-  return static_cast<int>(cudaGetLastError());
+// q: [M, >= n] int8, row stride ldq (rows of whole 1024-tiles: the codes
+// up to column ceil(n / 1024) * 1024 are read); scales: [M, >= ceil(n /
+// 1024)] float32, row stride lds; w: [M] float32 -> out: [n] float32,
+// 16-byte aligned.
+int repro_wsum_q8(const void* q, int64_t ldq, const void* scales,
+                  int64_t lds, const void* w, int M, void* out, int64_t n,
+                  void* stream) {
+  if (M < 1 || n < 1 || reinterpret_cast<uintptr_t>(out) % 16)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int8_t* c = static_cast<const int8_t*>(q);
+  const float* s = static_cast<const float*>(scales);
+  const float* wf = static_cast<const float*>(w);
+  float* o = static_cast<float*>(out);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const cudaError_t err =
+      stream::code_align(q, M > 1 ? ldq : 0) == 4
+          ? dispatch_wsum<4>(c, ldq, s, lds, wf, M, o, n, st)
+          : dispatch_wsum<1>(c, ldq, s, lds, wf, M, o, n, st);
+  return static_cast<int>(err);
+}
+
+// repro_wsum_q8's arguments in order, each as an int64 (pointers
+// included): one pointer to pass instead of nine typed values.
+int repro_wsum_q8_packed(const int64_t* a) {
+  return repro_wsum_q8(
+      reinterpret_cast<const void*>(a[0]), a[1],
+      reinterpret_cast<const void*>(a[2]), a[3],
+      reinterpret_cast<const void*>(a[4]), (int)a[5],
+      reinterpret_cast<void*>(a[6]), a[7], reinterpret_cast<void*>(a[8]));
 }
 
 // base: [>= n] float32 (4-byte aligned), q: [>= n] int8 in whole 1024-tiles,

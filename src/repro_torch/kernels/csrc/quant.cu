@@ -7,10 +7,24 @@
 // quant.py:79 (dequantize, K = 1) and quant.py:55 (dequantize_batch, K rows):
 //   x = q * s[tile], written as float32 or bfloat16.
 //
-// Bound: memory. quantize reads 4 bytes and writes 1 (+4 per tile) per
-// element: one block owns one tile, 256 threads x 4 elements, 16-byte loads,
-// a warp-shuffle amax reduction, then each thread writes its 4 codes as one
-// char4. dequantize reads 1 byte (+4 per tile) and writes 4 (or 2) per
+// Bound: memory. quantize reads 4 bytes of each of the n elements it is
+// given and writes 1 code of each of the Np >= n of the payload (+4 a
+// tile). It takes the caller's [n] floats at any 4-byte alignment and
+// writes the payload's zero padding itself: in the ragged tile the
+// elements at n and beyond count as 0.0, and a tile wholly past n gets
+// 1024 zero codes and the scale 1.0 with no load, the bytes that the
+// reference's zero padding (F.pad to Np) gives. From kWarpTileMin tiles
+// on, one warp owns one tile: each lane issues its eight 16-byte loads (32
+// floats, spaced 128 apart, every warp-wide load one contiguous 512 bytes)
+// before any arithmetic, amax is a warp-shuffle reduction (no shared
+// memory, no barrier), and each lane writes its 32 codes as eight 4-byte
+// streaming stores; warps stride over the tiles of a grid sized from the
+// SM count and occupancy. Below it a block of 8 warps owns a tile, one
+// load and 4 divisions a lane, the warp maxima meeting in shared memory:
+// one warp a tile leaves a small launch (the paper CNN's 128 tiles) with a
+// warp an SM, each lane's 32 IEEE divisions in a row, and no other warp
+// to hide their latency.
+// dequantize reads 1 byte (+4 per tile) and writes 4 (or 2) per
 // element kept: it takes [K, Np] codes with a row stride and writes only the
 // n <= Np columns the caller keeps, into rows 16-byte aligned. A warp takes
 // 512 codes at once, a thread 16 as four 4-byte loads (all in flight
@@ -32,34 +46,123 @@
 
 namespace {
 
-constexpr int kTile = 1024;
-constexpr int kThreads = kTile / 4;
+// Code of a over the scale s: IEEE division, half to even, clipped; as a
+// byte of a little-endian word. A zero a takes the code 0 without its
+// division (it divides s by s instead): a zero dividend fails the fast
+// path's range check, and the slow path, taken lane by lane for the
+// ragged tile's zeros and for all-zero tiles, made up most of a small
+// launch's time; the division gives that code too.
+__device__ __forceinline__ unsigned quant_byte(float a, float s) {
+  const bool zero = a == 0.f;
+  float r = rintf((zero ? s : a) / s);
+  r = zero ? 0.f : fminf(fmaxf(r, -127.f), 127.f);
+  return static_cast<unsigned>(static_cast<int>(r)) & 0xffu;
+}
 
-__global__ void quantize_kernel(const float* __restrict__ x,
-                                int8_t* __restrict__ q,
-                                float* __restrict__ scales) {
-  __shared__ float warp_max[kThreads / 32];
-  const int64_t tile = blockIdx.x;
-  const int64_t base = tile * kTile + 4 * threadIdx.x;
-  const float4 v = *reinterpret_cast<const float4*>(x + base);
-  float m = fmaxf(fmaxf(fabsf(v.x), fabsf(v.y)), fmaxf(fabsf(v.z), fabsf(v.w)));
+__device__ __forceinline__ float amax4(float4 v) {
+  return fmaxf(fmaxf(fabsf(v.x), fabsf(v.y)), fmaxf(fabsf(v.z), fabsf(v.w)));
+}
+
+// x [n] float32 at an XA-byte alignment (16, 8 or 4) -> q [tiles * 1024]
+// int8 and scales [tiles], 4-byte aligned. W warps own a tile: W = 1, warp
+// w takes tiles w, w + warps, ... and lane l holds elements k * 128 + 4 l
+// .. + 3 of it for k = 0..7, the amax a warp shuffle; W = 8, a block of
+// 256 threads takes tiles b, b + blocks, ..., warp j holding elements j *
+// 128 + 4 l .. + 3, and the eight warp maxima meet in shared memory (two
+// slots, used in turns, so that one barrier a tile is enough). All of a
+// lane's loads come before the max. Only the tile holding n masks its
+// loads; the tiles past it load nothing.
+template <int XA, int W>
+__global__ void __launch_bounds__(stream::kMaxThreads)
+quantize_kernel(const float* __restrict__ x, int64_t n,
+                int8_t* __restrict__ q, float* __restrict__ scales,
+                int64_t tiles) {
+  using namespace stream;
+  constexpr int V = kTile / kSpan / W;    // vectors of 4 a lane: 8 or 1
+  const int lane = threadIdx.x % 32;
+  const int sub = threadIdx.x / 32 % W;   // the warp's place in its tile
+  const int64_t step = (int64_t)gridDim.x * blockDim.x / (32 * W);
+  __shared__ float warp_max[2][W];
+  int slot = 0;
+  for (int64_t t = ((int64_t)blockIdx.x * blockDim.x + threadIdx.x) /
+                   (32 * W);
+       t < tiles; t += step) {
+    const int64_t e0 = t * kTile + sub * kSpan + kVec * lane;
+    // word k of the lane: codes e0 + k * W * 128 .. + 3
+    unsigned* qw = reinterpret_cast<unsigned*>(q + e0);
+    const bool first = sub == 0 && lane == 0;
+    if (t * kTile >= n) {                 // wholly padding
 #pragma unroll
-  for (int off = 16; off > 0; off >>= 1)
-    m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, off));
-  if ((threadIdx.x & 31) == 0) warp_max[threadIdx.x >> 5] = m;
-  __syncthreads();
-  float amax = warp_max[0];
+      for (int k = 0; k < V; ++k) st(qw + k * W * 32, 0u);
+      if (first) st(scales + t, 1.0f);
+      continue;
+    }
+    float4 v[V];
+    if ((t + 1) * kTile <= n) {
 #pragma unroll
-  for (int i = 1; i < kThreads / 32; ++i) amax = fmaxf(amax, warp_max[i]);
-  const float s = amax > 0.f ? amax * (1.0f / 127.0f) : 1.0f;
-  auto code = [s](float a) -> signed char {
-    float r = rintf(a / s);
-    r = fminf(fmaxf(r, -127.f), 127.f);
-    return static_cast<signed char>(static_cast<int>(r));
-  };
-  *reinterpret_cast<char4*>(q + base) =
-      make_char4(code(v.x), code(v.y), code(v.z), code(v.w));
-  if (threadIdx.x == 0) scales[tile] = s;
+      for (int k = 0; k < V; ++k) v[k] = ld4<XA>(x + e0 + k * W * kSpan);
+    } else {
+#pragma unroll
+      for (int k = 0; k < V; ++k) {
+        const int64_t e = e0 + k * W * kSpan;
+        v[k] = make_float4(e < n ? ld(x + e) : 0.f,
+                           e + 1 < n ? ld(x + e + 1) : 0.f,
+                           e + 2 < n ? ld(x + e + 2) : 0.f,
+                           e + 3 < n ? ld(x + e + 3) : 0.f);
+      }
+    }
+    float m = amax4(v[0]);
+#pragma unroll
+    for (int k = 1; k < V; ++k) m = fmaxf(m, amax4(v[k]));
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1)
+      m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, off));
+    if constexpr (W > 1) {
+      if (lane == 0) warp_max[slot][sub] = m;
+      __syncthreads();
+#pragma unroll
+      for (int j = 0; j < W; ++j) m = fmaxf(m, warp_max[slot][j]);
+      slot ^= 1;
+    }
+    const float s = m > 0.f ? m * (1.0f / 127.0f) : 1.0f;
+#pragma unroll
+    for (int k = 0; k < V; ++k)
+      st(qw + k * W * 32, quant_byte(v[k].x, s) | quant_byte(v[k].y, s) << 8 |
+                              quant_byte(v[k].z, s) << 16 |
+                              quant_byte(v[k].w, s) << 24);
+    if (first) st(scales + t, s);
+  }
+}
+
+// Tiles from which one warp a tile is used (W = 1): below, a block a tile
+// (W = 8) spreads a launch over more warps. On an H100 the two bodies
+// cross between 1,024 and 4,096 tiles; from 2^26 elements on the warp
+// body is 8-10 % faster (trace_kernels.py, quantize-scaling lines).
+constexpr int64_t kWarpTileMin = 4096;
+
+template <int XA, int W>
+cudaError_t launch_q(const float* x, int64_t n, int8_t* q, float* s,
+                     int64_t tiles, cudaStream_t st) {
+  constexpr auto kernel = &quantize_kernel<XA, W>;
+  dim3 grid;
+  int threads = stream::kMaxThreads;
+  if constexpr (W == 1) {
+    stream::grid_for(reinterpret_cast<const void*>(kernel), tiles * 32, 1,
+                     &grid, &threads);
+  } else {                                // a tile a block of 256 threads
+    const int64_t cap = int64_t{stream::sm_count()} *
+        stream::blocks_per_sm(reinterpret_cast<const void*>(kernel), threads);
+    grid = dim3((unsigned)(tiles < cap ? tiles : cap));
+  }
+  return stream::launch(kernel, grid, threads, st, x, n, q, s, tiles);
+}
+
+template <int XA>
+cudaError_t pick_q(const float* x, int64_t n, int8_t* q, float* s,
+                   int64_t tiles, int warps, cudaStream_t st) {
+  if (warps == 0) warps = tiles >= kWarpTileMin ? 1 : 8;
+  return warps == 1 ? launch_q<XA, 1>(x, n, q, s, tiles, st)
+                    : launch_q<XA, 8>(x, n, q, s, tiles, st);
 }
 
 template <typename T> __device__ __forceinline__ T from_f32(float v);
@@ -157,17 +260,30 @@ cudaError_t dispatch_dq(const void* q, int64_t ldq, const float* s,
 
 extern "C" {
 
-// x: [N] float32, N % 1024 == 0 -> q: [N] int8, scales: [N / 1024] float32.
-int repro_quantize(const void* x, void* q, void* scales, int64_t n,
-                   void* stream) {
-  const int64_t tiles = n / kTile;
-  if (tiles > 0) {
-    quantize_kernel<<<(unsigned)tiles, kThreads, 0,
-                      static_cast<cudaStream_t>(stream)>>>(
-        static_cast<const float*>(x), static_cast<int8_t*>(q),
-        static_cast<float*>(scales));
+// x: [n] float32, 4-byte aligned -> q: [padded] int8 and scales:
+// [padded / 1024] float32 (padded a multiple of 1024, at least n; both
+// 4-byte aligned): the codes of x zero-padded to `padded` elements.
+// warps: the warps a tile, 1 or 8, or 0 to choose from the tile count.
+int repro_quantize(const void* x, int64_t n, void* q, void* scales,
+                   int64_t padded, int warps, void* stream) {
+  if (n < 0 || padded < n || padded % stream::kTile ||
+      (warps != 0 && warps != 1 && warps != 8) ||
+      ((reinterpret_cast<uintptr_t>(x) | reinterpret_cast<uintptr_t>(q) |
+        reinterpret_cast<uintptr_t>(scales)) % 4))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int64_t tiles = padded / stream::kTile;
+  if (tiles == 0) return static_cast<int>(cudaSuccess);
+  const float* xf = static_cast<const float*>(x);
+  int8_t* c = static_cast<int8_t*>(q);
+  float* s = static_cast<float*>(scales);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  cudaError_t err;
+  switch (stream::float_align(x)) {
+    case 16: err = pick_q<16>(xf, n, c, s, tiles, warps, st); break;
+    case 8: err = pick_q<8>(xf, n, c, s, tiles, warps, st); break;
+    default: err = pick_q<4>(xf, n, c, s, tiles, warps, st); break;
   }
-  return static_cast<int>(cudaGetLastError());
+  return static_cast<int>(err);
 }
 
 // q: [K, >= n] int8 codes, row stride ldq (rows of whole 1024-tiles);

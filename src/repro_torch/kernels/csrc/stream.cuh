@@ -1,7 +1,9 @@
-// Shared by the streaming int8 kernels, dequantize (quant.cu) and
-// add_q8_delta (q8agg.cu). A warp takes a chunk of S x 128 elements at
-// once: each thread S vectors of 4, spaced 128 apart, so that every
-// warp-wide access is one contiguous span (128 bytes of codes, 512 of f32).
+// Shared by the streaming int8 kernels, quantize and dequantize (quant.cu),
+// wsum_q8 and add_q8_delta (q8agg.cu). A warp takes a chunk of S x 128
+// elements at once (quantize: a whole 1024-tile, S = 8, on large
+// payloads; a block of 8 warps a tile below): each thread S
+// vectors of 4, spaced 128 apart, so that every warp-wide access is one
+// contiguous span (128 bytes of codes, 512 of f32).
 // (16 contiguous codes a thread, one 16-byte load, reached under half of
 // the bound at N = 2^28: each warp-wide float4 store then writes half
 // sectors spread over 2 KB.) S is 4 (four loads in flight a thread) for
@@ -10,8 +12,9 @@
 // elements spread over every SM. The grid is sized from the SM count and
 // the blocks an SM holds.
 //
-// Cache hints: codes (and add_q8_delta's base) are read through the
-// read-only path (ld.global.nc), and outputs go out with st.global.cs
+// Cache hints: codes, quantize's input and add_q8_delta's base are read
+// through the read-only path (ld.global.nc), and outputs go out with
+// st.global.cs
 // (evict first): at 2^28 dequantize runs faster so, and at the paper CNN's
 // size the next kernel, which reads the output, no slower.
 #pragma once
@@ -47,6 +50,26 @@ __device__ __forceinline__ unsigned load_codes(const int8_t* p) {
     return (unsigned)ld(b) | ((unsigned)ld(b + 1) << 8) |
            ((unsigned)ld(b + 2) << 16) | ((unsigned)ld(b + 3) << 24);
   }
+}
+
+// Four floats at p, from an address aligned to BA bytes (16, 8 or 4).
+template <int BA>
+__device__ __forceinline__ float4 ld4(const float* p) {
+  if constexpr (BA == 16) {
+    return ld(reinterpret_cast<const float4*>(p));
+  } else if constexpr (BA == 8) {
+    const float2 a = ld(reinterpret_cast<const float2*>(p));
+    const float2 b = ld(reinterpret_cast<const float2*>(p) + 1);
+    return make_float4(a.x, a.y, b.x, b.y);
+  } else {
+    return make_float4(ld(p), ld(p + 1), ld(p + 2), ld(p + 3));
+  }
+}
+
+// The alignment in bytes (16, 8 or 4) of a float operand at p.
+inline int float_align(const void* p) {
+  const uintptr_t a = reinterpret_cast<uintptr_t>(p);
+  return a % 16 == 0 ? 16 : a % 8 == 0 ? 8 : 4;
 }
 
 // Code j of a word of 4, as a float (exact: |q| <= 127).

@@ -1,18 +1,18 @@
-"""Public kernel layer: padding, flattening and dispatch by device.
+"""Public kernel layer: flattening and dispatch by device.
 
-Twin of ``repro.kernels.ops``, with its padding contract where the bytes
-depend on it: ``quantize`` pads to ``QUANT_BLOCK`` (131072) on every device,
-so wire payloads are byte-identical to the reference's, and the fused int8
-merge pads to ``q8agg.TILE_N`` and ``QPB`` scales. The other kernels take
-the caller's tensors as they are: the int8 Gram takes any whole number of
-1024-tiles, the f32 weighted sum and Gram take
-``[M, N]`` at any N with a row stride (views included), ``dequantize`` and
-``dequantize_batch`` write only the ``n`` columns kept (``[n]``, or a
-``[K, n]`` view with 16-byte aligned rows), and ``add_q8_delta`` takes a
-base of ``n`` floats at any alignment with the payload's own codes (the
-reference pads these inside its own ``ops`` for its Pallas grids). Each
-call goes to its kernel wrapper, which launches the CUDA kernel for a CUDA
-tensor and runs the plain version for a CPU tensor.
+Twin of ``repro.kernels.ops``. Every call hands the caller's tensors to
+its kernel wrapper as they are, with the length to keep where it differs
+from the operand's: ``quantize`` gives the reference's wire payload, the
+codes of x zero-padded to ``QUANT_BLOCK`` (131072) on every device, but
+the kernel writes that padding itself; ``weighted_sum_q8``,
+``dequantize``, ``dequantize_batch`` and ``add_q8_delta`` take the
+payloads (whole 1024-tiles, rows may be strided) and write only the
+``n`` columns kept; the int8 Gram takes any whole number of 1024-tiles;
+the f32 weighted sum and Gram take ``[M, N]`` at any N with a row stride
+(views included). The reference pads these inside its own ``ops`` for
+its Pallas grids; nothing here pads or slices. Each call goes to its
+kernel wrapper, which launches the CUDA kernel for a CUDA tensor and
+runs the plain version for a CPU tensor.
 """
 from __future__ import annotations
 
@@ -20,7 +20,6 @@ from typing import List, NamedTuple, Tuple
 
 import numpy as np
 import torch
-import torch.nn.functional as F
 
 from repro_torch import tree
 from repro_torch.kernels import multikrum as _mk
@@ -31,15 +30,7 @@ from repro_torch.kernels import rwkv6 as _rwkv
 from repro_torch.kernels import wsum as _ws
 
 QTILE = _q.TILE                    # scale granularity of the int8 payload
-QUANT_BLOCK = _q.TILE * _q.LANE    # quantize pads to this (131072)
-
-
-def _pad_to(x, axis: int, multiple: int):
-    pad = (-x.shape[axis]) % multiple
-    if pad == 0:
-        return x
-    widths = [0, 0] * (x.ndim - 1 - axis % x.ndim) + [0, pad]
-    return F.pad(x, widths)
+QUANT_BLOCK = _q.TILE * _q.LANE    # the wire payload's length unit (131072)
 
 
 # --------------------------------------------------------------------------- #
@@ -138,22 +129,15 @@ def weighted_sum(x, w):
     return _ws.weighted_sum(x, w)
 
 
-def _pad_q8(q, scales):
-    """Pad [M, Np] int8 + [M, Np/QTILE] scales to the kernel block width.
-    Zero-padded q contributes nothing regardless of the padded scale."""
-    return (_pad_to(q, q.ndim - 1, _q8.TILE_N),
-            _pad_to(scales, scales.ndim - 1, _q8.QPB))
-
-
 def weighted_sum_q8(q, scales, w, n: int = None):
-    """Fused dequantize + weighted sum. q: [M, Np] int8 (Np % QTILE == 0),
-    scales: [M, Np/QTILE], w: [M] -> [n] f32 (n defaults to Np)."""
-    M, Np = q.shape
+    """Fused dequantize + weighted sum. q: [M, Np] int8 (Np % QTILE == 0,
+    rows may be strided), scales: [M, Np/QTILE], w: [M] -> [n] f32 (n
+    defaults to Np). Nothing is padded or sliced: the kernel reads the
+    tiles the n columns lie in and writes [n]."""
+    Np = q.shape[-1]
     if Np % QTILE:
         raise ValueError(f"quantized payload must be {QTILE}-aligned")
-    n = Np if n is None else n
-    qp, sp = _pad_q8(q, scales)
-    return _q8.wsum_q8(qp, sp, w)[:n]
+    return _q8.wsum_q8(q, scales, w, n)
 
 
 def add_q8_delta(base, q, scales, n: int = None):
@@ -184,10 +168,11 @@ def multikrum_scores_q8(q, scales, m: int):
 # --------------------------------------------------------------------------- #
 
 def quantize(x):
-    """x: [N] -> (q int8 [Np], scales [Np/QTILE], N), Np padded to
-    QUANT_BLOCK on every device (the reference's default path)."""
+    """x: [N] -> (q int8 [Np], scales [Np/QTILE], N), Np = N rounded up to
+    QUANT_BLOCK on every device (the reference's default path): the codes
+    of x zero-padded to Np, the padding written by the kernel itself."""
     N = x.shape[0]
-    q, s = _q.quantize(_pad_to(x.to(torch.float32), 0, QUANT_BLOCK))
+    q, s = _q.quantize(x.to(torch.float32), N + (-N) % QUANT_BLOCK)
     return q, s, N
 
 

@@ -2,8 +2,13 @@
 
 ``wsum_q8``: ``out[n] = sum_m w[m] * s[m, n//1024] * q[m, n]``, the
 cross-silo merge of int8 peers (replaces ``repro/kernels/q8agg.py:51``).
-Bound: memory, ``M*N + 4*M*N/1024 + 4*N`` bytes; one block per quantization
-tile folds ``w[m] * s[m, tile]`` once in shared memory.
+Bound: memory, ``M*n + 4*M*ceil(n/1024) + 4*n`` bytes for the n columns
+kept. It takes the caller's ``[M, Np]`` payloads as they are (a stack or a
+row-strided view) and writes ``[n]``, reading only the tiles those columns
+lie in: a warp a chunk of 512 columns, all of a chunk's code loads before
+its FMAs, ``w[m] * s[m, tile]`` folded in registers. Each output is the
+FMA chain over m in order from 0, the bits of the reference's kernel
+(``ref.weighted_sum_ordered``; ``ref.wsum_q8`` computes just that).
 
 ``add_q8_delta``: ``out = base + q * s``, rounded once (an FMA), the rebuild
 of an ``int8-delta`` envelope onto its base (replaces ``q8agg.py:77``).
@@ -31,15 +36,13 @@ import torch
 from repro_torch.kernels import _build, ref
 from repro_torch.kernels.quant import TILE as QT
 
-QPB = 4               # quant tiles per block of the reference layout
-TILE_N = QPB * QT     # the padding contract of ops._pad_q8 (ops.py:160-176)
-MAX_M = 1024          # folded weights live in shared memory
 GRAM_MAX_M = 64       # gram_q8: models (csrc/gram.cuh)
 
 _KERNEL = _build.register(
     "wsum_q8", "repro_wsum_q8",
-    [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-     ctypes.c_int, ctypes.c_int64, ctypes.c_void_p])
+    [ctypes.c_void_p, ctypes.c_int64, ctypes.c_void_p, ctypes.c_int64,
+     ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_int64,
+     ctypes.c_void_p], packed=True)
 _ADD_DELTA = _build.register(
     "add_q8_delta", "repro_add_q8_delta",
     [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
@@ -51,24 +54,38 @@ _GRAM = _build.register(
      ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p])
 
 
-def wsum_q8(q, scales, w):
-    """q: [M, N] int8 (N % TILE_N == 0); scales: [M, N/QT]; w: [M]
-    -> [N] f32."""
-    if q.device.type == "cpu":
-        return ref.wsum_q8(q, scales, w, QT)
-    if q.device.type != "cuda":
+def wsum_q8(q, scales, w, n=None):
+    """q: [M, Np] int8 (Np % QT == 0; rows may be strided); scales:
+    [M, Np/QT]; w: [M] -> the first ``n`` (default Np) columns of the
+    merge, [n] f32. The kernel reads only the ceil(n/QT) tiles they lie in.
+    The checks are written for a thin host path."""
+    if not q.is_cuda:
+        if q.device.type == "cpu":
+            out = ref.wsum_q8(q, scales, w, QT)
+            return out if n is None else out[:n]
         raise ValueError(f"wsum_q8: no kernel for device {q.device}")
-    M, N = q.shape
-    if q.dtype != torch.int8 or N % TILE_N or not 1 <= M <= MAX_M or \
-            tuple(scales.shape) != (M, N // QT) or tuple(w.shape) != (M,):
-        raise ValueError(f"wsum_q8: bad inputs q{tuple(q.shape)} {q.dtype} "
-                         f"scales{tuple(scales.shape)} w{tuple(w.shape)}")
-    q = q.contiguous()
-    scales = scales.to(torch.float32).contiguous()
-    w = w.to(device=q.device, dtype=torch.float32).contiguous()
-    out = torch.empty((N,), dtype=torch.float32, device=q.device)
-    _KERNEL(_build.ptr(q), _build.ptr(scales), _build.ptr(w), _build.ptr(out),
-            M, N, _build.stream_of(q))
+    shape, strides = q.shape, q.stride()
+    M, Np = shape if len(shape) == 2 else (0, 0)
+    n = Np if n is None else n
+    ldq = strides[0] if M > 1 else Np
+    if not (q.dtype is torch.int8 and M >= 1 and Np % QT == 0
+            and 0 < n <= Np and strides[1] == 1 and ldq >= Np
+            and scales.shape == (M, Np // QT) and w.shape == (M,)):
+        raise ValueError(f"wsum_q8: bad operands q{tuple(shape)} {q.dtype} "
+                         f"strides {strides}, scales{tuple(scales.shape)}, "
+                         f"w{tuple(w.shape)}, n={n} (q [M, Np], Np % {QT} "
+                         "== 0, 1 <= n <= Np, unit column stride)")
+    dev = q.get_device()
+    if not (scales.dtype is torch.float32 and scales.stride(1) == 1
+            and scales.get_device() == dev):
+        scales = scales.to(device=q.device, dtype=torch.float32).contiguous()
+    if not (w.dtype is torch.float32 and w.is_contiguous()
+            and w.get_device() == dev):
+        w = w.to(device=q.device, dtype=torch.float32).contiguous()
+    out = torch.empty(n, dtype=torch.float32, device=q.device)
+    _KERNEL(q.data_ptr(), ldq, scales.data_ptr(),
+            scales.stride(0) if M > 1 else Np // QT, w.data_ptr(), M,
+            out.data_ptr(), n, _build.raw_stream(dev))
     return out
 
 

@@ -4,12 +4,15 @@
 the body ``_dq_kernel`` that both ``quant.py:79`` (``dequantize``, one
 payload) and ``quant.py:55`` (``dequantize_batch``, K payloads in one
 launch) run. CUDA source: ``csrc/quant.cu``. Bound on the card: memory —
-quantize moves 5 bytes per element (+4 per 1024-tile), dequantize 5 (or 3
-for bf16 output) per element it keeps. One block per tile with a
-warp-shuffle amax; ``x / s`` is an IEEE division and rounding is
-half-to-even, so codes are bit-exact. ``dequantize`` takes the payloads as
-they are (row-strided ``[K, Np]``) and writes only the ``n`` columns the
-caller keeps, 16 codes a thread.
+quantize reads 4 bytes of each element it is given and writes 1 of each
+payload element (+4 per 1024-tile), dequantize 5 (or 3 for bf16 output)
+per element it keeps. ``quantize`` takes the caller's ``[n]`` floats as
+they are and writes the payload's zero padding itself (zero codes, scale
+1.0 past n): on a large payload one warp a tile with a warp-shuffle amax,
+on a small one a block of 8 warps a tile; ``x / s`` is an IEEE division
+and rounding is half-to-even, so codes are bit-exact.
+``dequantize`` takes the payloads as they are (row-strided ``[K, Np]``)
+and writes only the ``n`` columns the caller keeps, 16 codes a thread.
 """
 from __future__ import annotations
 
@@ -24,8 +27,8 @@ LANE = 128  # quantization tiles per block of the reference layout
 
 _Q = _build.register(
     "quantize", "repro_quantize",
-    [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int64,
-     ctypes.c_void_p])
+    [ctypes.c_void_p, ctypes.c_int64, ctypes.c_void_p, ctypes.c_void_p,
+     ctypes.c_int64, ctypes.c_int, ctypes.c_void_p])
 _DQ = _build.register(
     "dequantize", "repro_dequantize",
     [ctypes.c_void_p, ctypes.c_int64, ctypes.c_void_p, ctypes.c_int64,
@@ -39,19 +42,36 @@ def _cuda_only(t, name: str) -> None:
         raise ValueError(f"{name}: no kernel for device {t.device}")
 
 
-def quantize(x):
-    """x: [N] f32 (N % TILE == 0) -> (q int8 [N], scales f32 [N/TILE])."""
+def quantize(x, padded=None, warps=0):
+    """x: [n] f32 (unit stride, any n) -> (q int8 [padded], scales f32
+    [padded/TILE]): the codes of x zero-padded to ``padded`` elements, a
+    multiple of TILE and at least n (default: n rounded up to TILE). On
+    the card the kernel reads the n floats and writes the padding's codes
+    and scales itself, with ``warps`` warps a tile (1 or 8; 0, the
+    default, chooses from the tile count); on the CPU the plain version
+    quantizes a padded copy."""
+    n = x.shape[0] if x.dim() == 1 else -1
+    Np = -(-n // TILE) * TILE if padded is None else padded
+    if not (n >= 0 and Np % TILE == 0 and Np >= n and warps in (0, 1, 8)
+            and (x.stride(0) == 1 or n <= 1)):
+        raise ValueError(f"quantize: need x [n] with unit stride and padded "
+                         f"a multiple of {TILE} >= n; got x{tuple(x.shape)} "
+                         f"strides {x.stride()}, padded={padded}, "
+                         f"warps={warps}")
     if x.device.type == "cpu":
-        return ref.quantize_int8(x, TILE)
+        xp = x.to(torch.float32)
+        if Np > n:
+            xp = torch.cat([xp, xp.new_zeros(Np - n)])
+        return ref.quantize_int8(xp, TILE)
     _cuda_only(x, "quantize")
-    (N,) = x.shape
-    if x.dtype != torch.float32 or N % TILE:
-        raise ValueError(f"quantize: need f32 [N], N % {TILE} == 0; got "
-                         f"{x.dtype} {tuple(x.shape)}")
-    x = x.contiguous()
-    q = torch.empty((N,), dtype=torch.int8, device=x.device)
-    s = torch.empty((N // TILE,), dtype=torch.float32, device=x.device)
-    _Q(_build.ptr(x), _build.ptr(q), _build.ptr(s), N, _build.stream_of(x))
+    if x.dtype is not torch.float32:
+        raise ValueError(f"quantize: need f32, got {x.dtype}")
+    dev = x.get_device()
+    q = torch.empty((Np,), dtype=torch.int8, device=x.device)
+    s = torch.empty((Np // TILE,), dtype=torch.float32, device=x.device)
+    if Np:
+        _Q(x.data_ptr(), n, q.data_ptr(), s.data_ptr(), Np, warps,
+           _build.raw_stream(dev))
     return q, s
 
 

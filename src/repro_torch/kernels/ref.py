@@ -41,10 +41,10 @@ def weighted_sum_ordered(x, w):
     x[m], acc)`` for m = 0..M-1 from 0, each step rounded once, emulated in
     float64. The product is exact there (24 + 24 bits); TwoSum recovers what
     the float64 sum dropped, which decides a float32 tie. Bit for bit what
-    the kernel gives, at any layout and vector width; a yardstick for its
-    order, not a path of the port. x: [M, N] f32, w: [M] -> [N] f32; or w
-    [M, N], one weight an element (``wsum_q8``'s ``w_m s_m`` against its
-    codes)."""
+    the kernel gives, at any layout and vector width: a yardstick for its
+    order, and ``wsum_q8``'s plain version. x: [M, N] f32, w: [M] -> [N]
+    f32; or w [M, N], one weight an element (``wsum_q8``'s ``w_m s_m``
+    against its codes)."""
     acc = torch.zeros(x.shape[1], dtype=torch.float64, device=x.device)
     wf = w.to(device=x.device, dtype=torch.float64)
     inf = torch.tensor(float("inf"), dtype=torch.float32, device=x.device)
@@ -103,10 +103,18 @@ def dequantize_rows(q, scales, tile: int = 1024):
 
 
 def wsum_q8(q, scales, w, tile: int = 1024):
-    """Dequantize, then weighted sum. q: [M, N] int8, scales: [M, N/tile],
+    """Dequantize, then weighted sum, in the arithmetic of the kernels:
+    each weight folded into its model's tile scales (``w[m] * s[m, t]``,
+    rounded once to float32), then ``acc = fma(w_m s_m, q_m, acc)`` for m
+    = 0..M-1 from 0 (``weighted_sum_ordered``). The reference's Pallas
+    kernel (its dot over m) gives these bits too; a dot of w with the
+    dequantized rows, which rounds q * s first, differs in the last bit
+    for a large share of the columns. q: [M, N] int8, scales: [M, N/tile],
     w: [M] -> [N] f32."""
-    x = dequantize_rows(q, scales, tile)
-    return torch.einsum("m,mn->n", w.to(torch.float32), x)
+    fw = w.to(device=q.device, dtype=torch.float32)[:, None] * \
+        scales.to(device=q.device, dtype=torch.float32)
+    return weighted_sum_ordered(q.to(torch.float32),
+                                fw.repeat_interleave(tile, 1))
 
 
 def gram_and_norms(x):

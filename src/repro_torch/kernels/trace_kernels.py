@@ -1,5 +1,5 @@
-"""Trace ``wkv6``, ``wkv6_backward`` and ``gram_q8`` on the card:
-resources, occupancy, scaling.
+"""Trace ``wkv6``, ``wkv6_backward``, ``gram_q8``, ``quantize`` and
+``wsum_q8`` on the card: resources, occupancy, scaling.
 
   python -m repro_torch.kernels.trace_kernels        (from the repo root)
 
@@ -13,6 +13,10 @@ line each:
   shared memory and the blocks an SM the occupancy calculator gives with
   it (``wkv6``'s dynamic shared memory caps it at one block an SM, which
   ``wkv6-scaling`` shows as a step at 132 blocks);
+- ``ptxas``: ``quantize_kernel`` and ``wsum_q8_kernel`` (every
+  instantiation) as ``nvcc -Xptxas -v`` reports them (registers, shared
+  memory, spill stores and loads, stack), with the blocks an SM at the
+  256 threads a block that ``stream::grid_for`` gives at large n;
 - ``wkv6-scaling``: device time a launch (``torch.profiler``) as the
   (batch, head) blocks grow at a fixed T, and as T grows at the serving
   batch: a kernel that is latency-bound in each block keeps its time while
@@ -32,7 +36,16 @@ line each:
 - ``gram_q8-scaling``: device time a launch at M = 1, 3, 8 and N = 2^28
   and at the main shape (M 3, N 131,072): time that grows with the
   M(M+1)/2 row pairs rather than with the M*N bytes is shared-memory or
-  issue bound, not memory bound.
+  issue bound, not memory bound;
+- ``quantize-scaling`` and ``wsum_q8-scaling``: time a call (CUDA events,
+  the median of rounds in turns) beside the memory bound as n grows from
+  the paper CNN's 62,006 to 2^28 (``wsum_q8`` at M = 1, 2, 3, 4, 8, 9,
+  17; ``quantize`` also at ``qwen3-1.7b``'s width), and device time a
+  launch: a kernel that holds a steady share of its bound from some n on
+  is memory bound there, and below it the launch and the tail of the grid
+  take the time. ``quantize`` times both of its bodies (one warp a tile,
+  a block of 8 warps a tile) in turns with the ``ops`` call, which
+  launches the one its tile count picks; the three give the same bits.
 
 Every kernel is checked against its plain version first. Needs a CUDA card
 and ``nvcc``.
@@ -47,10 +60,14 @@ from pathlib import Path
 
 import torch
 
-from repro_torch.kernels import _build, q8agg, ref, rwkv6
+from repro_torch.kernels import _build, ops, q8agg, quant, ref, rwkv6
 
 SMS, SM_REGS, SM_WARPS, SM_BLOCKS = 132, 65_536, 64, 32
 LARGE_N = 1 << 28
+MAIN_N = 62_006                  # the paper CNN's flat vector
+MODEL_N = 1_723_982_848          # qwen3-1.7b's flat vector
+HBM_BYTES_PER_S = 3.35e12        # H100 SXM, NVIDIA data sheet
+INT8_SOURCES = ("quant.cu", "q8agg.cu")
 THREADS = {"wkv6_kernelILi64E": 256, "wkv6_kernelILi16E": 64,
            "wkv6_bwd_pass_kernelILi64E": 128,
            "wkv6_bwd_pass_kernelILi16E": 32,
@@ -202,6 +219,119 @@ def backward_scaling(gen, dev) -> None:
     torch.cuda.empty_cache()
 
 
+def ptxas(src: Path, out_dir: Path) -> subprocess.Popen:
+    """``nvcc -Xptxas -v`` of the int8 sources in ``src`` into an object
+    of their own (its report on the output)."""
+    objs = [str(out_dir / f"{Path(n).stem}.o") for n in INT8_SOURCES]
+    cmd = " && ".join(
+        " ".join([_build._nvcc(), *_build.NVCC_FLAGS, "-Xptxas", "-v", "-c",
+                  "-o", o, str(src / n)])
+        for n, o in zip(INT8_SOURCES, objs))
+    return subprocess.Popen(["bash", "-c", cmd], stdout=subprocess.PIPE,
+                            stderr=subprocess.STDOUT, text=True)
+
+
+def parse_ptxas(log: str) -> dict:
+    """kernel (mangled name) -> registers, shared bytes, spill stores and
+    loads, stack bytes, from a ``-Xptxas -v`` report."""
+    res, name = {}, None
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            name = m.group(1)
+            res[name] = {}
+            continue
+        if name is None:
+            continue
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                      r"(\d+) bytes spill loads", line)
+        if m:
+            res[name].update(stack=int(m.group(1)),
+                             spill_stores=int(m.group(2)),
+                             spill_loads=int(m.group(3)))
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            sm = re.search(r"(\d+) bytes smem", line)
+            res[name].update(regs=int(m.group(1)),
+                             shared=int(sm.group(1)) if sm else 0)
+            name = None
+    return {k: v for k, v in res.items()
+            if "quantize_kernel" in k or "wsum_q8_kernel" in k}
+
+
+def in_turns(calls: dict, iters: int, rounds: int = 3) -> dict:
+    """Median CUDA-event µs a call of each of ``calls``, in turns, after
+    five warm-up calls each."""
+    for c in calls.values():
+        for _ in range(5):
+            c()
+    us = {k: [] for k in calls}
+    for _ in range(rounds):
+        for k, c in calls.items():
+            us[k].append(event_us(c, iters))
+    return {k: sorted(v)[len(v) // 2] for k, v in us.items()}
+
+
+def int8_scaling(gen, dev) -> None:
+    """``quantize-scaling`` and ``wsum_q8-scaling`` lines (see the module
+    docstring)."""
+    for n in (MAIN_N, 1 << 17, 1 << 20, 1 << 22, 1 << 24, 1 << 26, LARGE_N,
+              MODEL_N):
+        Np = n + (-n) % ops.QUANT_BLOCK
+        x = torch.randn(n, generator=gen, device="cuda")
+        got = {w: quant.quantize(x, Np, w) for w in (0, 1, 8)}
+        if n <= 1 << 26:
+            want = ref.quantize_int8(torch.nn.functional.pad(x, (0, Np - n)))
+        else:
+            want = got[1]
+        for w, out in got.items():
+            if not all(torch.equal(a, b) for a, b in zip(out, want)):
+                raise SystemExit(f"trace_kernels: quantize n {n}, warps {w} "
+                                 "differs from the plain version (above "
+                                 "2^26: from the one-warp body)")
+        del got, want
+        calls = {"warps1": lambda: quant.quantize(x, Np, 1),
+                 "warps8": lambda: quant.quantize(x, Np, 8),
+                 "ops": lambda: ops.quantize(x)}
+        big = n >= 1 << 24
+        us = in_turns(calls, 10 if big else 200, 5 if big else 3)
+        bound = (4 * n + Np + Np // 1024 * 4) / HBM_BYTES_PER_S * 1e6
+        line = {"phase": "quantize-scaling", "n": n, "Np": Np,
+                "event_us_per_call": us, "bound_us": bound,
+                "share_of_bound": {k: bound / v for k, v in us.items()},
+                "device_us": {k: device_us(c, 5 if big else 50)
+                              for k, c in calls.items()}}
+        print(json.dumps({**line, "device": dev}), flush=True)
+        del x, calls
+        torch.cuda.empty_cache()
+    for M in (1, 2, 3, 4, 8, 9, 17):
+        for n in (MAIN_N, 1 << 20, 1 << 24, LARGE_N):
+            Np = n + (-n) % ops.QUANT_BLOCK
+            q = torch.randint(-127, 128, (M, Np), generator=gen,
+                              device="cuda", dtype=torch.int8)
+            s = torch.rand((M, Np // 1024), generator=gen,
+                           device="cuda") * 1e-3
+            w = torch.rand(M, generator=gen, device="cuda")
+            got = q8agg.wsum_q8(q, s, w, n)
+            if n <= 1 << 20 and not torch.equal(
+                    got, ref.wsum_q8(q, s, w)[:n]):
+                raise SystemExit(f"trace_kernels: wsum_q8 M {M} n {n} is "
+                                 "not the FMA chain")
+            call = lambda: ops.weighted_sum_q8(q, s, w, n)
+            us = in_turns({"ops": call}, 200 if n < 1 << 24 else 10)["ops"]
+            tiles = -(-n // 1024)
+            bound = (M * tiles * 1024 + M * tiles * 4 + 4 * n) \
+                / HBM_BYTES_PER_S * 1e6
+            line = {"phase": "wsum_q8-scaling", "M": M, "n": n, "Np": Np,
+                    "event_us_per_call": us, "bound_us": bound,
+                    "share_of_bound": bound / us}
+            if n == MAIN_N and M in (2, 3):
+                line["device_us"] = device_us(call, 50)
+            print(json.dumps({**line, "device": dev}), flush=True)
+            del q, s, w, got
+            torch.cuda.empty_cache()
+
+
 def main(argv=None) -> int:
     if argv:
         print(f"trace_kernels: takes no arguments, got {argv}",
@@ -216,6 +346,18 @@ def main(argv=None) -> int:
     print(smi, flush=True)
     gen = torch.Generator(device="cuda").manual_seed(0)
     dev = torch.cuda.get_device_name(0)
+
+    out_dir = _build.BUILD_DIR / "trace_kernels"
+    out_dir.mkdir(parents=True, exist_ok=True)
+    proc = ptxas(_build.CSRC, out_dir)
+    log = proc.communicate()[0]
+    if proc.returncode:
+        raise SystemExit(f"trace_kernels: nvcc failed:\n{log}")
+    for mangled, r in sorted(parse_ptxas(log).items()):
+        print(json.dumps({"phase": "ptxas", "kernel": mangled, **r,
+                          **occupancy(r.get("regs", 0), 256),
+                          "device": dev}), flush=True)
+    int8_scaling(gen, dev)
 
     dyn = backward_shared_memory()
     for mangled, r in sorted(resources(_build.build()).items()):

@@ -122,6 +122,49 @@ def test_plain_quantize_rounds_half_to_even_and_keeps_zero_tiles():
     np.testing.assert_array_equal(q[1024:2048].numpy(), want)
 
 
+@pytest.mark.parametrize("n,padded", [(0, 1024), (1, None), (1000, 2048),
+                                      (3000, 131072)])
+def test_quantize_writes_the_zero_padding(n, padded):
+    """The codes of x zero-padded to ``padded`` (default n rounded up to a
+    tile): zero codes and the scale 1.0 past the last tile x reaches."""
+    x = _rng_tensor((n,), 20 + n)
+    q, s = quant.quantize(x, padded)
+    Np = -(-n // 1024) * 1024 if padded is None else padded
+    assert q.shape == (Np,) and s.shape == (Np // 1024,)
+    for a, b in zip((q, s), ref.quantize_int8(
+            torch.cat([x, torch.zeros(Np - n)]))):
+        assert torch.equal(a, b)
+    assert torch.all(q[n:] == 0) and torch.all(s[-(-n // 1024):] == 1.0)
+
+
+@pytest.mark.parametrize("x,padded", [
+    (torch.zeros(1000), 1000), (torch.zeros(2048), 1024),
+    (torch.zeros(4096)[::2], None), (torch.zeros((2, 1024)), None)],
+    ids=["not-a-tile-multiple", "below-n", "strided", "two-dimensional"])
+def test_quantize_refuses_bad_operands(x, padded):
+    with pytest.raises(ValueError):
+        quant.quantize(x, padded)
+
+
+@pytest.mark.parametrize("warps", [-1, 2, 4, 32])
+def test_quantize_refuses_other_warp_counts(warps):
+    with pytest.raises(ValueError):
+        quant.quantize(torch.zeros(1024), None, warps)
+
+
+def test_wsum_q8_keeps_n_columns_of_strided_payloads():
+    """The plain path of ``wsum_q8``: any row stride, the first n columns,
+    bit for bit the kernels' FMA chain."""
+    q, s, w = _q8_inputs(3, 8192, 21)
+    qv = torch.zeros((3, 8192 + 1024), dtype=torch.int8)[:, :8192]
+    qv.copy_(q)
+    got = q8agg.wsum_q8(qv, s, w, 5000)
+    fw = (w[:, None] * s).repeat_interleave(1024, 1)
+    assert got.shape == (5000,)
+    assert torch.equal(got, ref.weighted_sum_ordered(q.float(), fw)[:5000])
+    assert torch.equal(q8agg.wsum_q8(q, s, w), ref.wsum_q8(q, s, w))
+
+
 def test_ops_unpadded_lengths_slice_back():
     x, w = _rng_tensor((2, 5000), 5), torch.tensor([0.25, 0.75])
     out = ops.weighted_sum(x, w)
@@ -138,7 +181,7 @@ def test_ops_hand_views_straight_to_the_kernels(monkeypatch):
     def refuse(*a, **k):
         raise AssertionError("ops padded an operand")
 
-    monkeypatch.setattr(ops.F, "pad", refuse)
+    monkeypatch.setattr(torch.nn.functional, "pad", refuse)
     seen = []
     monkeypatch.setattr(ops._ws, "weighted_sum",
                         lambda a, w: seen.append(a) or ref.weighted_sum(a, w))
@@ -155,15 +198,14 @@ def test_ops_hand_views_straight_to_the_kernels(monkeypatch):
 
 
 def test_ops_hand_int8_payloads_straight_to_the_kernels(monkeypatch):
-    """No F.pad, no _pad_to and no slice: ``dequantize``,
-    ``dequantize_batch`` and ``add_q8_delta`` hand their wrappers the
-    caller's own tensors and the length to keep, and return what the
-    wrapper returns."""
+    """No F.pad and no slice: ``dequantize``, ``dequantize_batch``,
+    ``add_q8_delta``, ``quantize`` and ``weighted_sum_q8`` hand their
+    wrappers the caller's own tensors and the length to keep
+    (``quantize``: the payload's), and return what the wrapper returns."""
     def refuse(*a, **k):
         raise AssertionError("ops padded an operand")
 
-    monkeypatch.setattr(ops.F, "pad", refuse)
-    monkeypatch.setattr(ops, "_pad_to", refuse)
+    monkeypatch.setattr(torch.nn.functional, "pad", refuse)
     seen, outs = [], []
 
     def spy(fn):
@@ -175,11 +217,29 @@ def test_ops_hand_int8_payloads_straight_to_the_kernels(monkeypatch):
 
     monkeypatch.setattr(ops._q, "dequantize", spy(quant.dequantize))
     monkeypatch.setattr(ops._q8, "add_q8_delta", spy(q8agg.add_q8_delta))
-    q, s, _ = _q8_inputs(2, 131072, 15)
+    monkeypatch.setattr(ops._q, "quantize", spy(quant.quantize))
+    monkeypatch.setattr(ops._q8, "wsum_q8", spy(q8agg.wsum_q8))
+    q, s, w = _q8_inputs(2, 131072, 15)
     base = _rng_tensor((6002,), 16)[1:6001]
     results = [ops.dequantize(q[1], s[1], 6000),
                ops.dequantize_batch(q, s, 6000, torch.bfloat16),
                ops.add_q8_delta(base, q[0], s[0], 6000)]
+    # quantize: an [n] view at an offset; the merge: a row-strided view
+    qv = torch.zeros((2, 131072 + 1024), dtype=torch.int8)[:, :131072]
+    qv.copy_(q)
+    coded = ops.quantize(base)
+    merged = ops.weighted_sum_q8(qv, s, w, 6000)
+    assert [a[-1] for a in seen[3:]] == [ops.QUANT_BLOCK, 6000]
+    for got, want in zip((seen[3][0],) + seen[4][:3], (base, qv, s, w)):
+        assert (got.data_ptr(), got.shape, got.stride()) == \
+            (want.data_ptr(), want.shape, want.stride())
+    assert all(a is b for a, b in zip(coded[:2], outs[3]))
+    assert coded[2] == 6000 and merged is outs[4]
+    padded = torch.cat([base, torch.zeros(ops.QUANT_BLOCK - 6000)])
+    for a, b in zip(coded[:2], ref.quantize_int8(padded)):
+        assert torch.equal(a, b)
+    assert torch.equal(merged, ref.wsum_q8(q, s, w)[:6000])
+    del seen[3:], outs[3:]
     assert [a[-1] for a in seen] == [6000, 6000, 6000]
     handed = [(seen[0][0], seen[0][1]), (seen[1][0], seen[1][1]),
               (seen[2][0], seen[2][1]), (seen[2][2],)]
@@ -349,17 +409,30 @@ def test_gpu_weighted_sum(m, n, dtype):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("n", [1024, 131072, 4 * 131072])
-def test_gpu_quantize_bit_exact(n):
+@pytest.mark.parametrize("warps", [0, 1, 8])
+@pytest.mark.parametrize("offset", [0, 1, 2])
+@pytest.mark.parametrize("n,padded", [
+    (1024, None), (131072, None), (4 * 131072, None), (1, 1024),
+    (1023, 131072), (3000, 3 * 131072), (62_006, 131072),
+    (131_073, 262_144)])
+def test_gpu_quantize_bit_exact(n, padded, offset, warps):
+    """Codes and scales of x zero-padded to ``padded``, bit for bit, with x
+    at 16-, 4- and 8-byte alignment (``offset`` floats into a buffer) and
+    each body (one warp a tile, a block of 8 a tile, and the one chosen):
+    from n = 2048 on an all-zero tile and a tile of .5 ties holding +amax
+    and -amax; the ragged tile masked, the tiles past n zero codes and the
+    scale 1.0."""
     dev = _cuda()
-    x = _rng_tensor((n,), n, scale=0.1).to(dev)
-    x[:1024] = 0.0
-    if n > 2048:
+    x = _rng_tensor((n + offset,), n, scale=0.1).to(dev)[offset:]
+    if n >= 2048:
+        x[:1024] = 0.0
         ties = torch.arange(1024, device=dev, dtype=torch.float32) % 200 - 100.5
-        ties[0] = 127.0
+        ties[0], ties[1] = 127.0, -127.0
         x[1024:2048] = ties
-    q, s = _launched("quantize", lambda: quant.quantize(x))
-    q0, s0 = ref.quantize_int8(x)
+    q, s = _launched("quantize", lambda: quant.quantize(x, padded, warps))
+    Np = -(-n // 1024) * 1024 if padded is None else padded
+    q0, s0 = ref.quantize_int8(torch.cat([x, torch.zeros(Np - n,
+                                                         device=dev)]))
     assert torch.equal(q, q0) and torch.equal(s, s0)
 
 
@@ -376,15 +449,30 @@ def test_gpu_dequantize_bit_exact(k, dtype):
     assert torch.equal(one, got[0])
 
 
+_WSUM_Q8_CASES = (
+    [(1, 4096, 4096, "contiguous"), (2, 131072, 131072, "contiguous"),
+     (7, 12288, 12288, "contiguous")]
+    + [(m, 131_072, 62_006, layout) for m in (1, 2, 3, 8, 9, 17)
+       for layout in ("strided", "offset1")]
+    + [(m, 5120, 5000, "offset4") for m in (4, 5, 6, 16)])
+
+
 @pytest.mark.gpu
-@pytest.mark.parametrize("m,n", [(1, 4096), (2, 131072), (7, 12288)])
-def test_gpu_wsum_q8(m, n):
+@pytest.mark.parametrize("m,np_,n,layout", _WSUM_Q8_CASES)
+def test_gpu_wsum_q8(m, np_, n, layout):
+    """Each template (M = 1..3) and the loop over groups of 3 (4 to 17:
+    a last group of 1, 2 or 3), ragged n and row-strided or misaligned
+    codes (``_codes``): bit for bit the FMA chain
+    ``ref.weighted_sum_ordered`` of w_m s_m against the codes."""
     dev = _cuda()
-    q, s, w = (t.to(dev) for t in _q8_inputs(m, n, m + n))
-    got = _launched("wsum_q8", lambda: q8agg.wsum_q8(q, s, w))
-    want = ref.wsum_q8(q, s, w)
-    scale = 127.0 * float((w[:, None] * s).sum(0).max())
-    assert float((got - want).abs().max()) <= m * 2.0 ** -22 * scale
+    q, s = _codes(m, np_, layout, dev, seed=m + np_)
+    w = torch.from_numpy(np.random.default_rng(m).uniform(0.1, 1.0, m)
+                         .astype(np.float32)).to(dev)
+    got = _launched("wsum_q8", lambda: q8agg.wsum_q8(q, s, w, n))
+    fw = (w[:, None] * s).repeat_interleave(1024, 1)
+    assert got.shape == (n,)
+    assert torch.equal(got, ref.weighted_sum_ordered(q.float(), fw)[:n])
+    assert torch.equal(got, ref.wsum_q8(q, s, w)[:n])
 
 
 @pytest.mark.gpu
@@ -655,6 +743,10 @@ def test_gpu_ops_match_the_cpu_path():
     x = _rng_tensor((62_006,), 7)
     for a, b in zip(ops.quantize(x.to(dev))[:2], ops.quantize(x)[:2]):
         assert torch.equal(a.cpu(), b)
+    # the int8 merge: the same FMA chain on both, so the same bits
+    q, s, wq = _q8_inputs(3, 131072, 17)
+    got = ops.weighted_sum_q8(q.to(dev), s.to(dev), wq.to(dev), 62_006)
+    assert torch.equal(got.cpu(), ops.weighted_sum_q8(q, s, wq, 62_006))
     xs, w = _rng_tensor((2, 62_006), 8), torch.tensor([0.5, 0.5])
     torch.testing.assert_close(ops.weighted_sum(xs.to(dev), w.to(dev)).cpu(),
                                ops.weighted_sum(xs, w), rtol=1e-6, atol=1e-7)
@@ -670,8 +762,16 @@ def test_gpu_ops_match_the_cpu_path():
 def test_gpu_wrappers_refuse_misaligned_and_malformed_operands():
     dev = _cuda()
     x = torch.zeros(4096 + 1, device=dev)
-    with pytest.raises(ValueError, match="aligned"):
-        quant.quantize(x[1:1025])
+    # quantize takes any 4-byte offset now; a column stride or a padding
+    # that is no whole number of tiles not
+    with pytest.raises(ValueError):
+        quant.quantize(x[1::2])
+    with pytest.raises(ValueError):
+        quant.quantize(x[1:1025], 1000)
+    with pytest.raises(ValueError):
+        q8agg.wsum_q8(torch.zeros((2, 1024), dtype=torch.int8, device=dev),
+                      torch.ones((2, 1), device=dev),
+                      torch.ones(2, device=dev), 1025)
     # any N and a row stride are fine now; a wrong w or a column stride not
     x2 = torch.zeros((2, 1000), device=dev)
     with pytest.raises(ValueError):
@@ -782,3 +882,28 @@ def test_gpu_wkv6_refuses_other_head_sizes():
     with pytest.raises(ValueError, match="share a device"):
         rwkv6.wkv6(z, z, z, z, torch.zeros((2, 64), device=dev),
                    torch.zeros((1, 2, 64, 64)))             # state on the CPU
+
+
+def test_trace_kernels_reads_a_ptxas_report():
+    """``trace_kernels.parse_ptxas`` keeps the two int8 kernels' entries of
+    an ``nvcc -Xptxas -v`` report: registers, shared memory, spills."""
+    from repro_torch.kernels import trace_kernels
+    log = "\n".join([
+        "ptxas info    : Compiling entry function "
+        "'_ZN12_GLOBAL__N_115quantize_kernelILi16EEEvPKflPaPfl' for 'sm_90a'",
+        "ptxas info    : Function properties for _ZN12_GLOBAL__N_1",
+        "    0 bytes stack frame, 8 bytes spill stores, 4 bytes spill loads",
+        "ptxas info    : Used 40 registers, used 0 barriers, 388 bytes cmem[0]",
+        "ptxas info    : Compiling entry function "
+        "'_ZN12_GLOBAL__N_114wsum_q8_kernelILi3ELb0ELi4EEEvPKalPKflS4_iPfl' "
+        "for 'sm_90a'",
+        "ptxas info    : Used 72 registers, 16 bytes smem, 400 bytes cmem[0]",
+        "ptxas info    : Compiling entry function '_Z5otheri' for 'sm_90a'",
+        "ptxas info    : Used 12 registers, 388 bytes cmem[0]"])
+    got = trace_kernels.parse_ptxas(log)
+    assert got == {
+        "_ZN12_GLOBAL__N_115quantize_kernelILi16EEEvPKflPaPfl": {
+            "stack": 0, "spill_stores": 8, "spill_loads": 4, "regs": 40,
+            "shared": 0},
+        "_ZN12_GLOBAL__N_114wsum_q8_kernelILi3ELb0ELi4EEEvPKalPKflS4_iPfl": {
+            "regs": 72, "shared": 16}}

@@ -3,7 +3,8 @@ path) against ``repro.kernels.ops`` running its Pallas kernels in interpret
 mode, on the same numpy inputs.
 
 quantize / dequantize are bit-exact; the weighted sums agree to 1e-6
-relative (float32 sums taken in another order).
+relative (float32 sums taken in another order), and the int8 merge is also
+bit for bit the reference's and the FMA chain of the port's kernel.
 """
 import jax
 import jax.numpy as jnp
@@ -15,6 +16,7 @@ from repro.kernels import ops as jops
 from repro.configs import get_config
 from repro.models import build_model as jbuild
 from repro_torch.kernels import ops as tops
+from repro_torch.kernels import ref as tref
 from repro_torch.interop import params_from_numpy
 
 RTOL = 1e-6
@@ -50,13 +52,19 @@ def _rel_close(got, want):
     assert np.abs(got - want).max() <= RTOL * scale
 
 
-@pytest.mark.parametrize("n", [1000, 62_006, 131_072 + 5])
+@pytest.mark.parametrize("n", [1, 1000, 1023, 1024, 62_006, 131_072,
+                               131_072 + 1, 131_072 + 5, 3 * 131_072 - 5])
 def test_quantize_bit_exact_with_wire_padding(n):
-    x = _with_edge_tiles(_vec(n, n))
+    """The payload of x zero-padded to the next QUANT_BLOCK, at ragged n
+    and at whole blocks (an all-zero tile and a tile of ties from n =
+    2048 on; below, random values)."""
+    x = _vec(n, n)
+    if n >= 2048:
+        x = _with_edge_tiles(x)
     jq, js, jn = jops.quantize(jnp.asarray(x))
     tq, ts, tn = tops.quantize(torch.from_numpy(x))
     assert jn == tn == n
-    assert tq.shape[0] % tops.QUANT_BLOCK == 0
+    assert tq.shape[0] == n + (-n) % tops.QUANT_BLOCK
     np.testing.assert_array_equal(tq.numpy(), np.asarray(jq))
     np.testing.assert_array_equal(ts.numpy(), np.asarray(js))
 
@@ -161,7 +169,7 @@ def test_pairwise_dists_q8_takes_unpadded_payloads(monkeypatch):
 
     seen = []
     gram = tq8.gram_q8
-    monkeypatch.setattr(tops.F, "pad", refuse)
+    monkeypatch.setattr(torch.nn.functional, "pad", refuse)
     monkeypatch.setattr(tops._q8, "gram_q8",
                         lambda q, s: seen.append((q, s)) or gram(q, s))
     m, n = 3, 61 * 1024
@@ -180,15 +188,29 @@ def test_pairwise_dists_q8_takes_unpadded_payloads(monkeypatch):
     assert np.abs(got - want).max() <= 4 * 2.0 ** -16 * sq.max()
 
 
-@pytest.mark.parametrize("m,np_,n", [(2, 131_072, 62_006), (3, 5120, 5000)])
-def test_weighted_sum_q8_matches(m, np_, n):
+@pytest.mark.parametrize("layout", ["contiguous", "strided"])
+@pytest.mark.parametrize("m,np_,n", [(2, 131_072, 62_006), (3, 5120, 5000),
+                                     (9, 8192, 7000)])
+def test_weighted_sum_q8_matches(m, np_, n, layout):
+    """Bit for bit the reference's merge (its Pallas kernel in interpret
+    mode), within RTOL of it too, and bit for bit the kernel's FMA chain
+    (``w_m s_m`` rounded once, then fma over m from 0); "strided": the
+    payloads as the [:, :Np] view of a wider [M, Np + 1024] buffer."""
     q, s, w = _q8(m, np_, m)
-    got = tops.weighted_sum_q8(torch.from_numpy(q), torch.from_numpy(s),
-                               torch.from_numpy(w), n)
+    qt = torch.from_numpy(q)
+    if layout == "strided":
+        qt = torch.zeros((m, np_ + 1024), dtype=torch.int8)[:, :np_]
+        qt.copy_(torch.from_numpy(q))
+    st, wt = torch.from_numpy(s), torch.from_numpy(w)
+    got = tops.weighted_sum_q8(qt, st, wt, n)
     want = jops.weighted_sum_q8(jnp.asarray(q), jnp.asarray(s),
                                 jnp.asarray(w), n)
     assert got.shape == (n,)
     _rel_close(got, want)
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+    fw = (wt[:, None] * st).repeat_interleave(1024, 1)
+    chain = tref.weighted_sum_ordered(torch.from_numpy(q).float(), fw)[:n]
+    assert torch.equal(got, chain)
 
 
 def test_flatten_follows_jax_leaf_order():
