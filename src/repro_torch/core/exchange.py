@@ -38,6 +38,17 @@ rank's local shards over its ``pod`` group only and merges them with
 
 The control-plane path (ledger + store) in ``core/orchestrator.py`` is the
 WAN variant of the same round.
+
+``tracer`` is read at every call: the shared no-op ``NULL_TRACER`` unless a
+caller installs an ``obs.tracer.Tracer`` here. The stacked round step
+times, as one round: ``round``; each pod's ``train`` (track ``pod<i>``),
+inside it ``train.forward`` (``model.loss``), ``train.backward`` (the
+gradients, remat's recomputation included) and ``train.update`` (SGD);
+``exchange``, and on a scored exchange inside it ``exchange.q8`` (the
+int8 coding, counter ``elements``: the values coded), ``exchange.score``
+(the score matrix or sketches) and ``exchange.merge`` (the weights and
+``weighted_sum`` merges). The process form times only what it shares
+with the stacked one: its train steps.
 """
 from __future__ import annotations
 
@@ -50,8 +61,11 @@ import torch.distributed as dist
 from repro_torch import pshard, tree
 from repro_torch.kernels.wsum import weighted_sum
 from repro_torch.models.api import Model
+from repro_torch.obs.tracer import NULL_TRACER
 
 F32 = torch.float32
+
+tracer = NULL_TRACER
 
 
 @dataclass(frozen=True)
@@ -302,35 +316,46 @@ def exchange_stacked(stack, score_fn: Callable, score_batches,
     P = int(tree.leaves(stack)[0].shape[0])
     if cfg.policy == "self" or P == 1:
         return stack
-    if cfg.policy == "all" and cfg.scorer != "multikrum":
-        def mean(s):
-            m = _mean([s[i].to(F32) for i in range(P)]).to(s.dtype)
-            return m.expand(s.shape).contiguous()
-        return tree.tree_map(mean, stack)
+    tr = tracer
+    with tr.timed("exchange", "pods"):
+        if cfg.policy == "all" and cfg.scorer != "multikrum":
+            def mean(s):
+                m = _mean([s[i].to(F32) for i in range(P)]).to(s.dtype)
+                return m.expand(s.shape).contiguous()
+            return tree.tree_map(mean, stack)
 
-    def gather(s):
-        if cfg.compression != "int8":
-            return s
-        q, sc = zip(*(_q8(s[i]) for i in range(P)))
-        return _dq8(torch.stack(q), torch.stack(sc)
-                    .reshape((P,) + (1,) * (s.dim() - 1)), s.dtype)
+        def gather(s):
+            q, sc = zip(*(_q8(s[i]) for i in range(P)))
+            return _dq8(torch.stack(q), torch.stack(sc)
+                        .reshape((P,) + (1,) * (s.dim() - 1)), s.dtype)
 
-    gathered = tree.tree_map(gather, stack)
-    score_mat = sketches = None
-    if cfg.scorer == "multikrum":
-        sketches = torch.stack([_sketch(_pod(stack, i), cfg.sketch_dim)
-                                for i in range(P)])
-    else:
-        score_mat = torch.stack([_score_row(gathered, score_fn, b)
-                                 for b in score_batches])
-    out = tree.tree_map(torch.empty_like, gathered)
-    rows = []
-    for i in range(P):
-        merged, w = exchange_gathered(gathered, i, cfg, score_mat=score_mat,
-                                      sketches=sketches)
-        tree.tree_map(lambda o, m: o[i].copy_(m), out, merged)
-        del merged
-        rows.append(w)
+        if cfg.compression == "int8":
+            with tr.timed("exchange.q8") as sp:
+                gathered = tree.tree_map(gather, stack)
+                if tr.enabled:
+                    sp.attrs["elements"] = sum(x.numel()
+                                               for x in tree.leaves(stack))
+        else:
+            gathered = stack
+        score_mat = sketches = None
+        with tr.timed("exchange.score"):
+            if cfg.scorer == "multikrum":
+                sketches = torch.stack([_sketch(_pod(stack, i),
+                                                cfg.sketch_dim)
+                                        for i in range(P)])
+            else:
+                score_mat = torch.stack([_score_row(gathered, score_fn, b)
+                                         for b in score_batches])
+        with tr.timed("exchange.merge"):
+            out = tree.tree_map(torch.empty_like, gathered)
+            rows = []
+            for i in range(P):
+                merged, w = exchange_gathered(gathered, i, cfg,
+                                              score_mat=score_mat,
+                                              sketches=sketches)
+                tree.tree_map(lambda o, m: o[i].copy_(m), out, merged)
+                del merged
+                rows.append(w)
     if info is not None:
         info.update(weights=torch.stack(rows), scores=score_mat,
                     sketches=sketches, gathered=gathered)
@@ -360,19 +385,23 @@ def make_train_step(model: Model, lr: float = 0.01):
     ``info["grads"]``, if given."""
 
     def train_step(params, batch, info=None):
+        tr = tracer
         paths, leaves = zip(*tree.leaves_with_paths(params))
         leaves = [p.detach().requires_grad_() for p in leaves]
         with pshard.dtensor_context(leaves):
-            loss, metrics = model.loss(tree.unflatten(list(paths), leaves),
-                                       batch)
-            grads = torch.autograd.grad(loss, leaves, allow_unused=True,
-                                        materialize_grads=True)
-            # pin each gradient to its parameter's placements (the
-            # reference's constraint, exchange.py:224-230): under fsdp the
-            # Partial -> Shard redistribute is the reduce-scatter
-            grads = [_pin(g, p) for g, p in zip(grads, leaves)]
-            new = [(p.detach().to(F32) - lr * g.to(F32)).to(p.dtype)
-                   for p, g in zip(leaves, grads)]
+            with tr.timed("train.forward"):
+                loss, metrics = model.loss(
+                    tree.unflatten(list(paths), leaves), batch)
+            with tr.timed("train.backward"):
+                grads = torch.autograd.grad(loss, leaves, allow_unused=True,
+                                            materialize_grads=True)
+                # pin each gradient to its parameter's placements (the
+                # reference's constraint, exchange.py:224-230): under fsdp
+                # the Partial -> Shard redistribute is the reduce-scatter
+                grads = [_pin(g, p) for g, p in zip(grads, leaves)]
+            with tr.timed("train.update"):
+                new = [(p.detach().to(F32) - lr * g.to(F32)).to(p.dtype)
+                       for p, g in zip(leaves, grads)]
         if info is not None:
             info["grads"] = tree.unflatten(list(paths), grads)
         del grads
@@ -445,10 +474,12 @@ def make_unifyfl_round_step(model: Model, mesh, ex_cfg: ExchangeConfig,
         return tree.tree_map(lambda x: x[:ex_cfg.score_batch], b)
 
     def train_pods(params, batch):
+        tr = tracer
         trained = tree.tree_map(torch.empty_like, params)
         losses = []
         for i in range(int(tree.leaves(params)[0].shape[0])):
-            new, metrics = train_step(_pod(params, i), _pod(batch, i))
+            with tr.timed("train", f"pod{i}", pod=i):
+                new, metrics = train_step(_pod(params, i), _pod(batch, i))
             tree.tree_map(lambda o, p: o[i].copy_(p), trained, new)
             del new
             losses.append(metrics["loss"])
@@ -456,13 +487,14 @@ def make_unifyfl_round_step(model: Model, mesh, ex_cfg: ExchangeConfig,
 
     if mesh is None:
         def round_step(params, batch, info=None):
-            trained, losses = train_pods(params, batch)
-            if info is not None:
-                info["trained"] = trained
-            out = exchange_stacked(
-                trained, score_fn,
-                [score_rows(_pod(batch, i)) for i in range(losses.shape[0])],
-                ex_cfg, info)
+            with tracer.timed("round", "pods"):
+                trained, losses = train_pods(params, batch)
+                if info is not None:
+                    info["trained"] = trained
+                out = exchange_stacked(
+                    trained, score_fn,
+                    [score_rows(_pod(batch, i))
+                     for i in range(losses.shape[0])], ex_cfg, info)
             return out, losses
         return round_step
 

@@ -9,7 +9,12 @@ https://ui.perfetto.dev load directly):
     ``a~b/fg``, ...), named via ``"M"`` metadata events;
   * spans become ``"X"`` complete events — simulated seconds scaled to
     trace micros (``ts``/``dur``), span attrs under ``args``;
-  * instants become thread-scoped ``"i"`` events.
+  * instants become thread-scoped ``"i"`` events;
+  * timed spans (the round step's, ``Tracer.timed``) become ``"X"`` events
+    twice: their host interval on ``<track>/host`` and their device
+    interval on ``<track>/device``, in microseconds from the first kept
+    round's start, the device's clock set to meet the host's at the first
+    root timed on both; round, id and parent under ``args``.
 
 Events are emitted sorted by (pid, tid, ts, -dur) so same-start nested spans
 render parent-first and per-track timestamps are monotone — properties the
@@ -76,6 +81,8 @@ def chrome_trace(tracer, metrics: Optional[Dict[str, Any]] = None) -> Dict:
                      {"name": kind, "cat": kind.split(".", 1)[0],
                       "ph": "i", "s": "t", "ts": round(t * _US, 3),
                       "pid": pid, "tid": tid, "args": _clean_args(attrs)}))
+    timed = _timed_rows(tracer, ids)
+    rows += timed
     rows.sort(key=lambda r: (r[0], r[1], r[2], r[3], r[4]["name"]))
     events = [r[4] for r in rows]
 
@@ -91,9 +98,41 @@ def chrome_trace(tracer, metrics: Optional[Dict[str, Any]] = None) -> Dict:
     doc: Dict[str, Any] = {"traceEvents": meta + events,
                            "displayTimeUnit": "ms",
                            "otherData": {"clock": "simulated-seconds*1e6"}}
+    if timed:
+        doc["otherData"]["timed_clock"] = \
+            "host perf_counter and CUDA events, us from the first kept round"
     if metrics is not None:
         doc["metrics"] = metrics
     return doc
+
+
+def _timed_rows(tracer, ids) -> List:
+    """Rows of the tracer's timed spans (seconds from the first kept
+    round's start on the host), host and device tracks."""
+    spans = [sp for r in tracer.rounds() for sp in r]
+    if not spans:
+        return []
+    host0 = spans[0].host0_ns
+    first = next((sp for sp in spans
+                  if sp.parent is None and sp.dev0_ns is not None), None)
+    dev0 = None if first is None else \
+        first.dev0_ns - (first.host0_ns - host0)
+    rows = []
+    for sp in spans:
+        args = _clean_args({"round": sp.round, "id": sp.id,
+                            "parent": sp.parent, **sp.attrs})
+        ivs = [("host", sp.host0_ns - host0, sp.host1_ns - host0)]
+        if dev0 is not None and sp.dev0_ns is not None:
+            ivs.append(("device", sp.dev0_ns - dev0, sp.dev1_ns - dev0))
+        for lane, a, b in ivs:
+            pid, tid = ids(f"{sp.track}/{lane}")
+            t0, t1 = a / 1e9, max(a, b) / 1e9
+            rows.append(((pid, tid), t0, 0, -(t1 - t0),
+                         {"name": sp.kind, "cat": sp.kind.split(".", 1)[0],
+                          "ph": "X", "ts": round(t0 * _US, 3),
+                          "dur": round((t1 - t0) * _US, 3), "pid": pid,
+                          "tid": tid, "args": args}))
+    return rows
 
 
 def write_chrome_trace(path: str, tracer,

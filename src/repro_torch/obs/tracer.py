@@ -25,11 +25,26 @@ matched begin/end pairs, which the well-formedness tests assert.
 
 When constructed with a ``MetricsRegistry``, every closed span feeds a
 ``span:<kind>`` duration histogram.
+
+Timed spans (``timed``) are the other clock: spans inside the multi-pod
+round step (``core/exchange.py``), each timed on the host
+(``time.perf_counter_ns``) and, where the tracer is given a CUDA device,
+on the device by a pair of CUDA events recorded on the current stream. A
+span opened with no timed span open is a root: it and every span opened
+inside it form one round, all under the root's round id, and the tracer
+keeps only the last ``keep_rounds`` rounds. Device times are resolved
+lazily (``rounds``), once the device has passed a round's events: the
+tracer never synchronizes. Nothing is put into a profiler's timeline
+(no ``record_function``, no NVTX range).
 """
 from __future__ import annotations
 
+import time
+from collections import deque
 from dataclasses import dataclass, field
 from typing import Any, Dict, List, Optional, Tuple
+
+import torch
 
 from repro_torch.obs.metrics import MetricsRegistry
 
@@ -60,12 +75,49 @@ class _OpenSpan:
         self.closed = False
 
 
+@dataclass
+class TimedSpan:
+    """One timed span of a round step. Host times are ``perf_counter_ns``;
+    device times are nanoseconds on the device from the start of the first
+    round the tracer resolved, None until resolved or where the tracer
+    times no device. ``parent`` is the id of the span it was opened in
+    (None for a round's root); every span of a round has the root's
+    ``round``."""
+    kind: str
+    track: str
+    id: int
+    parent: Optional[int]
+    round: int
+    host0_ns: int
+    host1_ns: int = 0
+    dev0_ns: Optional[float] = None
+    dev1_ns: Optional[float] = None
+    attrs: Dict[str, Any] = field(default_factory=dict)
+
+
+class _NullTimed:
+    """The one no-op context every ``NullTracer.timed`` call returns."""
+    __slots__ = ()
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc) -> None:
+        return None
+
+
+_NULL_TIMED = _NullTimed()
+
+
 class NullTracer:
     """Zero-overhead stand-in: obs off means these no-ops are the whole
     cost. Instrument sites may also branch on ``enabled`` to skip building
     attrs dicts entirely."""
 
     enabled = False
+
+    def timed(self, kind: str, track: Optional[str] = None, **attrs):
+        return _NULL_TIMED
 
     def record(self, t: float, event) -> None:
         pass
@@ -93,15 +145,58 @@ class NullTracer:
 NULL_TRACER = NullTracer()
 
 
+class _Round:
+    """A kept round: its spans, the CUDA events of those not yet resolved
+    ((span, start, end) in the order they opened), its root's start event
+    (``origin``) and where that lies on the device (``base_ns``, from the
+    first round's start)."""
+    __slots__ = ("spans", "pending", "origin", "base_ns")
+
+    def __init__(self):
+        self.spans: List[TimedSpan] = []
+        self.pending: List[Tuple[TimedSpan, Any, Any]] = []
+        self.origin = None
+        self.base_ns: Optional[float] = None
+
+
+class _Timed:
+    """The context ``Tracer.timed`` returns: opens the span on entry
+    (yielding its ``TimedSpan``, whose ``attrs`` may take counters) and
+    closes it on exit."""
+    __slots__ = ("tracer", "kind", "track", "attrs", "span", "start")
+
+    def __init__(self, tracer: "Tracer", kind: str, track: Optional[str],
+                 attrs: Dict[str, Any]):
+        self.tracer, self.kind, self.track, self.attrs = \
+            tracer, kind, track, attrs
+
+    def __enter__(self) -> TimedSpan:
+        return self.tracer._open_timed(self)
+
+    def __exit__(self, *exc) -> None:
+        self.tracer._close_timed(self)
+
+
 class Tracer(NullTracer):
     enabled = True
 
-    def __init__(self, registry: Optional[MetricsRegistry] = None):
+    def __init__(self, registry: Optional[MetricsRegistry] = None, *,
+                 device=None, keep_rounds: int = 64):
         self.registry = registry
         self.spans: List[Span] = []
         # (t, kind, track, attrs) instants — typed events and point markers
         self.events: List[Tuple[float, str, str, Dict[str, Any]]] = []
         self._open: List[_OpenSpan] = []
+        # timed spans: the last keep_rounds rounds, the open spans' stack
+        self.cuda = device is not None and torch.device(device).type == "cuda"
+        self._rounds: deque = deque()
+        self._keep = keep_rounds
+        self._stack: List[_Timed] = []
+        self._free: List[Any] = []           # CUDA events to reuse
+        self._next_id = 0
+        self._next_round = 0
+        self._prev: Optional[_Round] = None  # the last round resolved
+        self._first = True                   # no round resolved yet
 
     # -- instants ------------------------------------------------------------- #
     def record(self, t: float, event) -> None:
@@ -154,6 +249,102 @@ class Tracer(NullTracer):
         if self.registry is not None:
             self.registry.histogram(f"span:{span.kind}").observe(
                 span.duration)
+
+    # -- timed spans (host clock + CUDA events) ------------------------------ #
+    def timed(self, kind: str, track: Optional[str] = None,
+              **attrs) -> _Timed:
+        """A span timed on the host and, with a CUDA device, on the device,
+        as a context manager. ``track`` defaults to the enclosing span's
+        (a root's to its kind)."""
+        return _Timed(self, kind, track, attrs)
+
+    def _event(self):
+        ev = self._free.pop() if self._free else \
+            torch.cuda.Event(enable_timing=True)
+        ev.record()
+        return ev
+
+    def _open_timed(self, t: _Timed) -> TimedSpan:
+        parent = self._stack[-1].span if self._stack else None
+        if parent is None:
+            if len(self._rounds) >= self._keep:
+                self._evict()
+            self._rounds.append(_Round())
+            rid, self._next_round = self._next_round, self._next_round + 1
+        else:
+            rid = parent.round
+        track = t.track or (parent.track if parent is not None else t.kind)
+        sp = TimedSpan(t.kind, track, self._next_id,
+                       None if parent is None else parent.id, rid,
+                       time.perf_counter_ns(), attrs=t.attrs)
+        self._next_id += 1
+        t.span = sp
+        t.start = self._event() if self.cuda else None
+        rnd = self._rounds[-1]
+        if parent is None and self.cuda:
+            rnd.origin = t.start
+        rnd.spans.append(sp)
+        self._stack.append(t)
+        return sp
+
+    def _close_timed(self, t: _Timed) -> None:
+        end = self._event() if self.cuda else None
+        t.span.host1_ns = time.perf_counter_ns()
+        self._stack.pop()
+        if self.cuda:
+            self._rounds[-1].pending.append((t.span, t.start, end))
+
+    def _evict(self) -> None:
+        """Drop the oldest round, its events back to the pool; what the
+        device has passed is resolved first, so the next round keeps its
+        place on the device."""
+        self._resolve()
+        old = self._rounds.popleft()
+        for _, a, b in old.pending:
+            self._free += [a, b]
+        if old is self._prev:              # its origin places the next round
+            self._prev = None
+            self._free.append(old.origin)
+
+    def _resolve(self) -> None:
+        """Device times of every closed round the device has passed, in
+        order: each span from its round's origin, each origin from the
+        previous round's (then returned to the pool). Stops at the first
+        round whose last event the device has not reached. A round whose
+        previous round left the ring unresolved has no place (None)."""
+        for rnd in self._rounds:
+            if self._stack and rnd is self._rounds[-1]:
+                return                     # still open
+            if not rnd.pending:
+                continue
+            if not rnd.pending[-1][2].query():
+                return
+            prev = self._prev
+            if self._first:
+                rnd.base_ns, self._first = 0.0, False
+            elif prev is not None and prev.base_ns is not None:
+                rnd.base_ns = prev.base_ns + \
+                    1e6 * prev.origin.elapsed_time(rnd.origin)
+            for sp, a, b in rnd.pending:
+                if rnd.base_ns is not None:
+                    sp.dev0_ns = rnd.base_ns + 1e6 * rnd.origin.elapsed_time(a)
+                    sp.dev1_ns = rnd.base_ns + 1e6 * rnd.origin.elapsed_time(b)
+                if a is not rnd.origin:
+                    self._free.append(a)
+                self._free.append(b)
+            rnd.pending = []
+            if prev is not None:
+                self._free.append(prev.origin)
+                prev.origin = None
+            self._prev = rnd
+
+    def rounds(self) -> List[List[TimedSpan]]:
+        """The kept rounds, oldest first, each its spans in the order they
+        opened; device times resolved for every round the device has
+        passed (call after a synchronize to have them all)."""
+        if self.cuda:
+            self._resolve()
+        return [list(r.spans) for r in self._rounds]
 
     # -- introspection --------------------------------------------------------- #
     @property
