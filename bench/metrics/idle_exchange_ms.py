@@ -1,6 +1,7 @@
-"""Device layer: idle time a step inside the ``exchange`` span: its device
-wall in the window (CUDA events) less the busy union inside it in the
-profiled steps, placed on the device trace by ``spans.py``'s anchor."""
+"""Device layer: idle time a step inside the ``exchange`` span, from the
+profiled steps: its device wall, placed on the device trace by
+``spans.py``'s anchor, less the busy union inside it (no synchronize of
+the harness's there)."""
 from bench import spans
 
 

@@ -1,9 +1,8 @@
-"""Device layer: idle time a step inside the pods' ``train`` spans: their
-device wall in the window (CUDA events) less the busy union inside them
-in the profiled steps, placed on the device trace by ``spans.py``'s
-anchor. The window's spans start on an empty queue (the harness
-synchronizes before each train step), so the wait for the first launch
-is part of it."""
+"""Device layer: idle time a step inside the pods' ``train`` spans, from
+the profiled steps: their device wall, placed on the device trace by
+``spans.py``'s anchor, less the busy union inside them. The harness does
+not synchronize in those steps, so the queue is not drained before a pod's
+train step and the value is the program's own idle."""
 from bench import spans
 
 

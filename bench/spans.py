@@ -22,10 +22,15 @@ profiler's device timeline by one anchor, the end of the last profiled
 runs in order on the one stream, and after the last step only the
 synchronize follows. Each stretch of the profiled steps' device time,
 busy or idle, is then charged to the innermost span whose placed interval
-holds it, and each kernel to the one that holds its middle. A span
-boundary is an event recorded between two launches on the stream, so it
-lies in a gap between device intervals where the two clocks agree: how far
-one falls inside an interval is the anchor's error.
+holds it, and each kernel to the one that holds its middle; the idle
+readers take a span's placed wall less its busy time there, where the
+harness does not synchronize. The window's walls (the ``*_ms`` readers)
+lie between the harness's synchronizes before each pod's train step and
+around the exchange, so the first span inside each holds the drained
+queue's wait for the host's first launches. A span boundary is an event
+recorded between two launches on the stream, so it lies in a gap between
+device intervals where the two clocks agree: how far one falls inside an
+interval is the anchor's error.
 """
 from __future__ import annotations
 
@@ -39,21 +44,20 @@ import torch
 from bench import program
 from bench.trace import short
 
-KEEP_ROUNDS = 256      # more than a 30 s window's steps of either cell
 Q8_BYTES = 6           # bf16 read, int8 written, int8 read, bf16 written
 
 
-def install(device="cuda"):
-    """A recording tracer in the program's round step; None (and nothing
-    installed) where the program has no timed spans."""
+def install():
+    """A recording tracer in the program's round step (timing the device
+    where CUDA is available); None (and nothing installed) where the
+    program has no timed spans."""
     program.path()
     from repro_torch.core import exchange
     from repro_torch.obs import tracer as obs_tracer
     if not hasattr(exchange, "tracer") or \
             not hasattr(obs_tracer.Tracer, "timed"):
         return None
-    exchange.tracer = obs_tracer.Tracer(device=device,
-                                        keep_rounds=KEEP_ROUNDS)
+    exchange.tracer = obs_tracer.Tracer()
     return exchange.tracer
 
 
@@ -222,36 +226,38 @@ def wall_ms(ctx, kind: str):
 
 
 def idle_ms(ctx, kind: str):
-    """The spans of ``kind``: device wall a window step less the busy
-    union inside them a profiled step."""
-    a, wall = analysis(ctx), wall_ms(ctx, kind)
-    if wall is None or not a["profiled"] or \
+    """The spans of ``kind`` in the profiled steps: their placed device
+    wall a step less the busy union inside them, both on the profiler's
+    clock. The harness does not synchronize in those steps (its ``Spans``
+    is off), so this is the program's own idle, and the profiler's stretch
+    of kernel time is on both sides."""
+    a = analysis(ctx)
+    if a is None or not a["profiled"] or \
             kind not in a["profiled"]["kinds"]:
         return None
-    return wall - a["profiled"]["kinds"][kind]["busy"]
+    d = a["profiled"]["kinds"][kind]
+    return d["wall"] - d["busy"]
 
 
 def report(ctx) -> dict:
-    """The per-span table of a traced run (ms a step): window wall, and
-    from the profiled steps busy, idle before the first kernel, self time,
-    kernels and the top kernels; the anchor's checks; each kind's idle as
-    ``idle_ms`` reads it; and the idle outside the round step (the
-    window's step less the profiled busy time a step, less the idle inside
-    ``train`` and ``exchange``)."""
+    """The per-span table of a traced run (ms a step): window wall (which,
+    between the harness's synchronizes, holds the drained queue's wait),
+    and from the profiled steps placed wall, busy, idle before the first
+    kernel, self time, kernels and the top kernels; the anchor's checks;
+    each kind's idle as ``idle_ms`` reads it; and the idle outside the
+    round step (the window's step less its ``round`` wall)."""
     a = ctx.round_spans
     out = {"window_rounds": a["window_rounds"], "wall_ms": a["wall_ms"],
            "elements": a["elements"]}
+    if "round" in a["wall_ms"]:
+        out["idle_outside_round_ms"] = \
+            1e3 * ctx.window_s / ctx.window_steps - a["wall_ms"]["round"]
     if a["profiled"]:
         p = a["profiled"]
         out.update({key: p[key] for key in
                     ("anchor_error_us", "outside_pct", "charged_pct")})
         out["profiled"] = p["kinds"]
-        step_ms = 1e3 * ctx.window_s / ctx.window_steps
-        busy_ms = 1e3 * ctx.trace.busy_s() / ctx.trace.steps
         out["idle_ms"] = {kind: idle_ms(ctx, kind) for kind in p["kinds"]}
-        idle = [out["idle_ms"].get(kind) for kind in ("train", "exchange")]
-        if None not in idle:
-            out["idle_outside_round_ms"] = step_ms - busy_ms - sum(idle)
     return out
 
 

@@ -11,6 +11,8 @@ import torch
 from bench import harness, program, smoke, spans
 from bench.trace import Trace
 
+spans.uninstall()     # the import installs a tracer where a card is visible
+
 program.path()
 from repro_torch.obs.tracer import TimedSpan  # noqa: E402
 
@@ -150,9 +152,27 @@ def test_the_readers_read_the_spans(stub):
     assert got["idle_train_ms"] == pytest.approx((2 * 58 - 2 * 48) * 1e-3)
     assert got["idle_exchange_ms"] == pytest.approx((77 - 68) * 1e-3)
     rep = spans.report(ctx)
-    assert rep["idle_outside_round_ms"] == pytest.approx(
-        250e-3 - 1e3 * ctx.trace.busy_s() - (20 + 9) * 1e-3)
+    assert rep["idle_outside_round_ms"] == pytest.approx((250 - 200) * 1e-3)
+    assert rep["idle_ms"]["train"] == got["idle_train_ms"]
     json.dumps(rep)
+
+
+def test_the_idle_pair_reads_the_profiled_steps_alone(stub):
+    """Window walls stretched (as the harness's synchronizes stretch them)
+    move the wall readers and leave the idle pair, which takes wall and
+    busy time from the profiled steps."""
+    ctx, rounds = _ctx()
+    for r in rounds[C + 1:C + 1 + N]:
+        for sp in r:
+            if sp.kind in ("train", "train.forward", "exchange",
+                           "exchange.q8"):
+                sp.dev1_ns += 7e3
+    stub(rounds)
+    got = _read(ctx, BOTH + SCORED)
+    assert got["forward_ms"] == pytest.approx(2 * 23e-3)
+    assert got["q8_ms"] == pytest.approx(23e-3)
+    assert got["idle_train_ms"] == pytest.approx((2 * 58 - 2 * 48) * 1e-3)
+    assert got["idle_exchange_ms"] == pytest.approx((77 - 68) * 1e-3)
 
 
 def test_a_mean_exchange_has_no_scored_metrics(stub):
@@ -196,7 +216,7 @@ def test_the_nine_metrics_are_entries_of_the_benchmark():
 def test_install_leaves_a_program_without_timed_spans_alone(monkeypatch):
     from repro_torch.core import exchange
     monkeypatch.delattr(exchange, "tracer")
-    assert spans.install(device=None) is None
+    assert spans.install() is None
     assert not hasattr(exchange, "tracer")
     assert spans.installed() is None
 
@@ -205,7 +225,7 @@ def test_a_cpu_traced_run_with_the_tracer_reports_what_it_did_before():
     """The recording tracer installed (on the CPU: host clock only), a small
     traced run reports the metrics it reports without it and is correct;
     the tracer holds one round a step, in the harness's order."""
-    tracer = spans.install(device=None)
+    tracer = spans.install()
     try:
         res = smoke.run(W, trace=True)
         rounds = tracer.rounds()
@@ -217,5 +237,6 @@ def test_a_cpu_traced_run_with_the_tracer_reports_what_it_did_before():
     n = res["attempted"]
     assert [r[0].round for r in rounds] == list(
         range(mix["checked_steps"] + 1 + n + mix["profiled_steps"]))
-    assert all(r[0].kind == "round" and r[0].dev0_ns is None for r in rounds)
+    assert all(r[0].kind == "round" and (r[0].dev0_ns is None) != tracer.cuda
+               for r in rounds)
 

@@ -28,14 +28,14 @@ When constructed with a ``MetricsRegistry``, every closed span feeds a
 
 Timed spans (``timed``) are the other clock: spans inside the multi-pod
 round step (``core/exchange.py``), each timed on the host
-(``time.perf_counter_ns``) and, where the tracer is given a CUDA device,
-on the device by a pair of CUDA events recorded on the current stream. A
-span opened with no timed span open is a root: it and every span opened
-inside it form one round, all under the root's round id, and the tracer
-keeps only the last ``keep_rounds`` rounds. Device times are resolved
-lazily (``rounds``), once the device has passed a round's events: the
-tracer never synchronizes. Nothing is put into a profiler's timeline
-(no ``record_function``, no NVTX range).
+(``time.perf_counter_ns``) and, where CUDA is available, on the device by
+a pair of CUDA events recorded on the current stream. A span opened with
+no timed span open is a root: it and every span opened inside it form one
+round, all under the root's round id, and the tracer keeps only the last
+``KEEP_ROUNDS`` rounds. Device times are resolved lazily (``rounds``),
+once the device has passed a round's events: the tracer never
+synchronizes. Nothing is put into a profiler's timeline (no
+``record_function``, no NVTX range).
 """
 from __future__ import annotations
 
@@ -47,6 +47,8 @@ from typing import Any, Dict, List, Optional, Tuple
 import torch
 
 from repro_torch.obs.metrics import MetricsRegistry
+
+KEEP_ROUNDS = 256      # timed rounds kept: more than a benchmark window's
 
 
 @dataclass
@@ -180,23 +182,22 @@ class _Timed:
 class Tracer(NullTracer):
     enabled = True
 
-    def __init__(self, registry: Optional[MetricsRegistry] = None, *,
-                 device=None, keep_rounds: int = 64):
+    def __init__(self, registry: Optional[MetricsRegistry] = None):
         self.registry = registry
         self.spans: List[Span] = []
         # (t, kind, track, attrs) instants — typed events and point markers
         self.events: List[Tuple[float, str, str, Dict[str, Any]]] = []
         self._open: List[_OpenSpan] = []
-        # timed spans: the last keep_rounds rounds, the open spans' stack
-        self.cuda = device is not None and torch.device(device).type == "cuda"
+        # timed spans: the last KEEP_ROUNDS rounds, the open spans' stack
+        self.cuda = torch.cuda.is_available()
         self._rounds: deque = deque()
-        self._keep = keep_rounds
         self._stack: List[_Timed] = []
         self._free: List[Any] = []           # CUDA events to reuse
         self._next_id = 0
         self._next_round = 0
-        self._prev: Optional[_Round] = None  # the last round resolved
-        self._first = True                   # no round resolved yet
+        # the last round resolved, kept (with its origin) after it leaves
+        # the ring until the next round is placed from it
+        self._prev: Optional[_Round] = None
 
     # -- instants ------------------------------------------------------------- #
     def record(self, t: float, event) -> None:
@@ -253,8 +254,8 @@ class Tracer(NullTracer):
     # -- timed spans (host clock + CUDA events) ------------------------------ #
     def timed(self, kind: str, track: Optional[str] = None,
               **attrs) -> _Timed:
-        """A span timed on the host and, with a CUDA device, on the device,
-        as a context manager. ``track`` defaults to the enclosing span's
+        """A span timed on the host and, where CUDA is available, on the
+        device, as a context manager. ``track`` defaults to the enclosing span's
         (a root's to its kind)."""
         return _Timed(self, kind, track, attrs)
 
@@ -267,7 +268,7 @@ class Tracer(NullTracer):
     def _open_timed(self, t: _Timed) -> TimedSpan:
         parent = self._stack[-1].span if self._stack else None
         if parent is None:
-            if len(self._rounds) >= self._keep:
+            if len(self._rounds) >= KEEP_ROUNDS:
                 self._evict()
             self._rounds.append(_Round())
             rid, self._next_round = self._next_round, self._next_round + 1
@@ -295,23 +296,21 @@ class Tracer(NullTracer):
             self._rounds[-1].pending.append((t.span, t.start, end))
 
     def _evict(self) -> None:
-        """Drop the oldest round, its events back to the pool; what the
-        device has passed is resolved first, so the next round keeps its
-        place on the device."""
+        """Drop the oldest round. What the device has passed is resolved
+        first; an unresolved round's events go back to the pool. The last
+        round resolved stays ``_prev``, its origin kept, so the next round
+        still takes its place on the device from it."""
         self._resolve()
         old = self._rounds.popleft()
         for _, a, b in old.pending:
             self._free += [a, b]
-        if old is self._prev:              # its origin places the next round
-            self._prev = None
-            self._free.append(old.origin)
 
     def _resolve(self) -> None:
         """Device times of every closed round the device has passed, in
         order: each span from its round's origin, each origin from the
-        previous round's (then returned to the pool). Stops at the first
-        round whose last event the device has not reached. A round whose
-        previous round left the ring unresolved has no place (None)."""
+        previous resolved round's (then returned to the pool), the first
+        at 0. Stops at the first round whose last event the device has not
+        reached."""
         for rnd in self._rounds:
             if self._stack and rnd is self._rounds[-1]:
                 return                     # still open
@@ -320,15 +319,11 @@ class Tracer(NullTracer):
             if not rnd.pending[-1][2].query():
                 return
             prev = self._prev
-            if self._first:
-                rnd.base_ns, self._first = 0.0, False
-            elif prev is not None and prev.base_ns is not None:
-                rnd.base_ns = prev.base_ns + \
-                    1e6 * prev.origin.elapsed_time(rnd.origin)
+            rnd.base_ns = 0.0 if prev is None else prev.base_ns + \
+                1e6 * prev.origin.elapsed_time(rnd.origin)
             for sp, a, b in rnd.pending:
-                if rnd.base_ns is not None:
-                    sp.dev0_ns = rnd.base_ns + 1e6 * rnd.origin.elapsed_time(a)
-                    sp.dev1_ns = rnd.base_ns + 1e6 * rnd.origin.elapsed_time(b)
+                sp.dev0_ns = rnd.base_ns + 1e6 * rnd.origin.elapsed_time(a)
+                sp.dev1_ns = rnd.base_ns + 1e6 * rnd.origin.elapsed_time(b)
                 if a is not rnd.origin:
                     self._free.append(a)
                 self._free.append(b)

@@ -15,6 +15,7 @@ from repro_torch.config import replace
 from repro_torch.configs import get_smoke_config
 from repro_torch.core import exchange as ex
 from repro_torch.models import build_model
+from repro_torch.obs import tracer as obs_tracer
 from repro_torch.obs.export import (chrome_trace, validate_chrome_trace,
                                    write_chrome_trace)
 from repro_torch.obs.tracer import NULL_TRACER, NullTracer, Tracer
@@ -78,7 +79,7 @@ def test_the_round_step_gives_the_same_bits_traced(pods, traced, name):
     weights, scores, sketches) are bit-identical with a recording tracer
     installed and with ``NULL_TRACER``, over two steps."""
     plain = _rounds(pods, name)
-    traced(Tracer(keep_rounds=4))
+    traced(Tracer())
     timed = _rounds(pods, name)
     for (s0, l0, i0), (s1, l1, i1) in zip(plain, timed):
         assert torch.equal(l0, l1)
@@ -133,7 +134,7 @@ def test_the_spans_nest_one_round_a_step(pods, traced, name):
     each ``exchange.*`` inside ``exchange``, all inside ``round``, every
     span of a step under its round id; ``elements`` the parameters of a
     pod times the pods."""
-    t = traced(Tracer(keep_rounds=4))
+    t = traced(Tracer())
     _rounds(pods, name)
     rounds = t.rounds()
     assert len(rounds) == 2
@@ -141,8 +142,9 @@ def test_the_spans_nest_one_round_a_step(pods, traced, name):
     assert t.spans == [] and t.events == []      # the simulated clock's
 
 
-def test_the_tracer_keeps_its_last_rounds(pods, traced):
-    t = traced(Tracer(keep_rounds=2))
+def test_the_tracer_keeps_its_last_rounds(pods, traced, monkeypatch):
+    monkeypatch.setattr(obs_tracer, "KEEP_ROUNDS", 2)
+    t = traced(Tracer())
     _rounds(pods, "all", n=5)
     assert [r[0].round for r in t.rounds()] == [3, 4]
     assert len({sp.id for r in t.rounds() for sp in r}) == \
@@ -184,6 +186,7 @@ class FakeEvent:
 
 @pytest.fixture
 def fake_cuda(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
     monkeypatch.setattr(torch.cuda, "Event", FakeEvent)
     FakeEvent.now, FakeEvent.done, FakeEvent.made = 0.0, float("inf"), 0
     return FakeEvent
@@ -200,11 +203,12 @@ def _fake_round(t, work_ms=1.0):
             FakeEvent.now += work_ms
 
 
-def test_device_times_resolve_lazily_and_in_place(fake_cuda):
+def test_device_times_resolve_lazily_and_in_place(fake_cuda, monkeypatch):
     """Device times stay unresolved while the device has not passed a
     round's events and resolve once it has; they nest as on the host, lie
     on one clock across rounds and evictions, and the events are reused."""
-    t = Tracer(device="cuda", keep_rounds=3)
+    monkeypatch.setattr(obs_tracer, "KEEP_ROUNDS", 3)
+    t = Tracer()
     FakeEvent.done = -1.0                      # the device is behind
     _fake_round(t)
     assert all(sp.dev0_ns is None for sp in t.rounds()[0])
@@ -232,11 +236,43 @@ def test_device_times_resolve_lazily_and_in_place(fake_cuda):
     assert FakeEvent.made <= (3 + 2) * events_a_round
 
 
+@pytest.mark.parametrize("keep,behind", [(1, 0), (2, 0), (2, 1), (3, 2)])
+def test_every_kept_round_keeps_its_place_on_the_device(fake_cuda,
+                                                        monkeypatch, keep,
+                                                        behind):
+    """The device ``behind`` rounds behind when each round opens (0: caught
+    up, as after a caller's synchronize every step, the caller reading
+    ``rounds`` each time): the last round resolved may leave the ring, and
+    the next round still takes its place from it, so every kept round has
+    device times on the one clock of round 0's start."""
+    monkeypatch.setattr(obs_tracer, "KEEP_ROUNDS", keep)
+    t = Tracer()
+    ends = []
+    for _ in range(7):
+        FakeEvent.done = ends[-1 - behind] if len(ends) > behind else -1.0
+        _fake_round(t)
+        ends.append(FakeEvent.now)
+        if behind == 0:
+            FakeEvent.done = FakeEvent.now
+            assert all(sp.dev0_ns is not None for sp in t.rounds()[-1])
+    FakeEvent.done = float("inf")
+    rounds = t.rounds()
+    assert [r[0].round for r in rounds] == list(range(7 - keep, 7))
+    for r in rounds:
+        assert all(sp.dev0_ns is not None and sp.dev0_ns < sp.dev1_ns
+                   for sp in r)
+        # a round takes ends[0] ms of the stand-in clock, from its start
+        assert r[0].dev0_ns == pytest.approx(r[0].round * ends[0] * 1e6)
+        assert r[0].dev1_ns == pytest.approx(
+            (r[0].round + 1) * ends[0] * 1e6 - 0.25e6)
+    assert FakeEvent.made <= (keep + behind + 2) * 2 * len(rounds[0])
+
+
 def test_the_spans_export_as_a_chrome_trace(fake_cuda, tmp_path):
     """Host intervals on ``<track>/host``, device intervals on
     ``<track>/device``, beside a simulated span; the document well
     formed, on disk too."""
-    t = Tracer(device="cuda", keep_rounds=4)
+    t = Tracer()
     for _ in range(2):
         _fake_round(t)
     t.span_at("phase.train", "silo0/phases", 0.0, 1.0)  # a simulated span
@@ -291,14 +327,15 @@ def _pods_on(pods, device):
 
 
 @pytest.mark.gpu
-def test_gpu_device_times_nest_and_resolve_after_the_callers_sync(pods,
-                                                                  traced):
+def test_gpu_device_times_nest_and_resolve_after_the_callers_sync(
+        pods, traced, monkeypatch):
     """On the card: the same bits with the recording tracer, and after
     the caller's synchronize every kept span has device times that nest
     as the host's do, on one clock across rounds."""
     on = _pods_on(pods, _cuda())
     plain = _rounds(on, "top_k-int8", n=3)
-    t = traced(Tracer(device="cuda", keep_rounds=2))
+    monkeypatch.setattr(obs_tracer, "KEEP_ROUNDS", 2)
+    t = traced(Tracer())
     timed = _rounds(on, "top_k-int8", n=3)
     torch.cuda.synchronize()
     for (s0, l0, _), (s1, l1, _) in zip(plain, timed):
@@ -329,7 +366,7 @@ def test_gpu_the_spans_add_nothing_to_the_device_trace(pods, traced):
         model, None, ex.ExchangeConfig(**CONFIGS["top_k-int8"]), 0.1)
     step(stack, batches[0])
     seen = []
-    for tracer in (NULL_TRACER, Tracer(device="cuda"), NULL_TRACER):
+    for tracer in (NULL_TRACER, Tracer(), NULL_TRACER):
         traced(tracer)
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
